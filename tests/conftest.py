@@ -22,3 +22,8 @@ def _drop_jax_executables_between_modules():
     yield
     if "jax" in sys.modules:  # never import jax for jax-free modules
         sys.modules["jax"].clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")

@@ -28,6 +28,8 @@ SHARDS: Dict[str, List[str]] = {
         "test_system.py",
         "test_scheduler.py",
         "test_configs.py",
+        "test_torch_kernels.py",
+        "test_torch_cuda.py",
     ],
     "kv-pool": [
         "test_quant_kv.py",
@@ -36,6 +38,7 @@ SHARDS: Dict[str, List[str]] = {
         "test_property.py",
         "test_hlocost.py",
         "test_train_data.py",
+        "test_torch_models.py",
     ],
     "serving": [
         "test_prefix_cache.py",
@@ -45,6 +48,8 @@ SHARDS: Dict[str, List[str]] = {
         "test_models_smoke.py",
         "test_shards.py",
         "test_dual_device.py",
+        "test_torch_sim.py",
+        "test_torch_engine.py",
     ],
 }
 
