@@ -81,25 +81,29 @@ def test_prefill_chunked_and_decode_logits_match_jax(arch, backend):
     assert tc["pos"].tolist() == [17, 17]
 
 
-def _j_pool(jcfg, jp, lens, toks, max_len, kv_dtype=None):
+def _j_pool(jcfg, jp, lens, toks, max_len, kv_dtype=None, logits=None):
     pool = J.init_cache(jcfg, jp, len(lens), max_len, jnp.float32,
                         kv_dtype=kv_dtype)
     for slot, n in enumerate(lens):
         if n:
-            _, pool = J.extend_row(jcfg, jp, pool,
-                                   jnp.asarray(toks[slot:slot + 1, :n]),
-                                   slot, kv_limit=32, full_alloc=max_len)
+            lg, pool = J.extend_row(jcfg, jp, pool,
+                                    jnp.asarray(toks[slot:slot + 1, :n]),
+                                    slot, kv_limit=32, full_alloc=max_len)
+            if logits is not None:
+                logits.append(np.asarray(lg))
     return pool
 
 
-def _t_pool(tcfg, tp, lens, toks, max_len, kv_dtype=None):
+def _t_pool(tcfg, tp, lens, toks, max_len, kv_dtype=None, logits=None):
     pool = T.init_cache(tcfg, tp, len(lens), max_len, torch.float32,
                         kv_dtype=kv_dtype)
     for slot, n in enumerate(lens):
         if n:
-            T.extend_row(tcfg, tp, pool,
-                         torch.from_numpy(toks[slot:slot + 1, :n]), slot,
-                         kv_limit=32, full_alloc=max_len)
+            lg, _ = T.extend_row(tcfg, tp, pool,
+                                 torch.from_numpy(toks[slot:slot + 1, :n]),
+                                 slot, kv_limit=32, full_alloc=max_len)
+            if logits is not None:
+                logits.append(lg.numpy())
     return pool
 
 
@@ -112,8 +116,10 @@ def test_extend_row_writes_the_pool_row_like_jax(kv_dtype):
     jcfg, jp, tcfg, tp = _weights("llama3-405b")
     lens, max_len = [0, 13, 0], 64
     toks = _tokens(jcfg, (3, 16))
-    jpool = _j_pool(jcfg, jp, lens, toks, max_len, kv_dtype)
-    tpool = _t_pool(tcfg, tp, lens, toks, max_len, kv_dtype)
+    jl, tl = [], []
+    jpool = _j_pool(jcfg, jp, lens, toks, max_len, kv_dtype, logits=jl)
+    tpool = _t_pool(tcfg, tp, lens, toks, max_len, kv_dtype, logits=tl)
+    _close(tl[0], jl[0], 3e-3)
     assert tpool["pos"].tolist() == np.asarray(jpool["pos"]).tolist()
     assert np.array_equal(tpool["blocks"]["0"]["slot_pos"].numpy(),
                           _leaf(jpool, "slot_pos"))
@@ -151,10 +157,10 @@ def _row(pool, slot):
 
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 def test_decode_run_matches_jax_and_is_exact_in_torch(backend):
-    """Fused decode vs the reference's decode_run (tokens equal, final
-    positions equal); in torch, fused == per-step and elastic == full pool
-    bit for bit, and the bound-but-inactive row 2 (mid-prefill) and the
-    empty row 3 are untouched."""
+    """Masked decode vs the reference's decode_step (logits) and
+    decode_run (tokens, final positions); in torch, fused == per-step and
+    elastic == full pool bit for bit, and the bound-but-inactive row 2
+    (mid-prefill) and the empty row 3 are untouched."""
     jcfg, jp, tcfg, tp = _weights("llama3-405b")
     lens, max_len, n = [11, 14, 9, 0], 64, 5
     toks = _tokens(jcfg, (4, 16))
@@ -163,9 +169,15 @@ def test_decode_run_matches_jax_and_is_exact_in_torch(backend):
     last = toks[:, 0].copy()
     active = np.asarray([True, True, False, False])
     kw = dict(kv_limit=32, full_alloc=max_len)
+    ta, tl = torch.from_numpy(active), torch.from_numpy(last)
+    # one masked step: logits of the active rows match the reference's
+    _, jlg, _ = J.decode_step(jcfg, jp, jpool, jnp.asarray(last),
+                              jnp.asarray(active), **kw)
+    _, tlg, _ = T.decode_step(tcfg, tp, _clone(tpool), tl, ta,
+                              kernel_backend=backend, **kw)
+    _close(tlg[:2], np.asarray(jlg)[:2], 1e-2)
     jblock, _, jpool = J.decode_run(jcfg, jp, jpool, jnp.asarray(last),
                                     jnp.asarray(active), n, **kw)
-    ta, tl = torch.from_numpy(active), torch.from_numpy(last)
     # full pool, fused
     full = _clone(tpool)
     before = _row(full, 2)
