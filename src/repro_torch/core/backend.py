@@ -293,8 +293,6 @@ class TorchRealBackend(ExecutionBackend):
                  decode_segment_steps: int = 8,
                  elastic_decode: bool = True,
                  prefix_cache: bool = False,
-                 prefix_cache_tokens: Optional[int] = None,
-                 prefix_block: int = 1,
                  kv_dtype: str = "bf16",
                  kernel_backend: str = "cuda",
                  pool_slots_max: Optional[int] = None,
@@ -323,7 +321,6 @@ class TorchRealBackend(ExecutionBackend):
             raise NotImplementedError(
                 "the device_resident=False / in_pool_prefill=False baselines "
                 "are not ported yet (ROADMAP.md queue 1, item 5f)")
-        del prefix_cache_tokens, prefix_block  # prefix cache: not ported yet
         self._torch, self._np = torch, np
         self.cfg = cfg
         self.params = params

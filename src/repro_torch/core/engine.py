@@ -133,7 +133,6 @@ class RealAgentXPUEngine(AgentXPUEngine):
                  abortable_runs: bool = True, decode_segment_steps: int = 8,
                  elastic_decode: bool = True,
                  prefix_cache: bool = False,
-                 prefix_cache_tokens: Optional[int] = None,
                  kv_dtype: str = "bf16",
                  kernel_backend: str = "cuda",
                  pool_slots_max: Optional[int] = None,
@@ -177,7 +176,6 @@ class RealAgentXPUEngine(AgentXPUEngine):
             in_pool_prefill=in_pool_prefill, abortable_runs=abortable_runs,
             decode_segment_steps=decode_segment_steps,
             elastic_decode=elastic_decode, prefix_cache=prefix_cache,
-            prefix_cache_tokens=prefix_cache_tokens,
             kv_dtype=kv_dtype, kernel_backend=kernel_backend,
             pool_slots_max=pool_slots_max,
             isolate_flow_faults=isolate_flow_faults, faults=faults)

@@ -119,10 +119,15 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     ``device`` seeded with ``seed``.  The draws differ from JAX's: tests that
     compare the two frameworks carry JAX's weights across with
     ``params.from_jax_params`` instead.  Returns an ``nn.Module`` whose
-    ``state_dict`` keys are the reference's tree paths."""
+    ``state_dict`` keys are the reference's tree paths.
+
+    ``device=None`` means ``"cuda"`` and raises when no GPU is visible, as
+    the engine does: the CPU is used only when asked for."""
     check_supported(cfg)
-    device = torch.device(device) if device is not None else torch.device(
-        "cpu")
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_params draws on CUDA by default and no GPU "
+                           "is visible; pass device='cpu' to use the CPU")
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     _, pattern, repeats, _ = layout(cfg)

@@ -103,9 +103,28 @@ def test_engine_needs_a_gpu_unless_asked_for_cpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible: the default device is valid here")
     cfg = t_tiny(ARCH)
-    params = init_params(cfg, seed=0, dtype=torch.float32)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="no GPU"):
         TEngine(cfg, params)
+
+
+def test_init_params_needs_a_gpu_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        init_params(t_tiny(ARCH), seed=0, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kw", [{"prefix_cache_tokens": 64},
+                                {"prefix_block": 4}])
+def test_prefix_cache_size_knobs_are_not_accepted(kw):
+    """The prefix cache is not ported, so its size knobs do not exist: the
+    backend refuses them instead of ignoring them."""
+    from repro_torch.core.backend import TorchRealBackend
+    cfg = t_tiny(ARCH)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    with pytest.raises(TypeError, match=next(iter(kw))):
+        TorchRealBackend(cfg, params, pool_slots=2, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [{"prefix_cache": True},
@@ -115,14 +134,14 @@ def test_engine_needs_a_gpu_unless_asked_for_cpu():
                                 {"in_pool_prefill": False}])
 def test_unported_knobs_raise_naming_roadmap(kw):
     cfg = t_tiny(ARCH)
-    params = init_params(cfg, seed=0, dtype=torch.float32)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(cfg, params, device="cpu", **kw)
 
 
 def test_cancel_mid_run_frees_the_slot():
     cfg = t_tiny(ARCH)
-    params = init_params(cfg, seed=0, dtype=torch.float32)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     eng = TEngine(cfg, params, max_len=64, device="cpu")
     rng = np.random.default_rng(0)
     reqs = [TRequest(id=i, priority=TPriority.PROACTIVE, prompt_len=10,

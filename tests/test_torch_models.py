@@ -270,4 +270,5 @@ def test_int8_payload_bytes_equal_and_scales_within_one_ulp():
                                   "recurrentgemma-9b"])
 def test_unported_families_raise_naming_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(t_tiny(arch), seed=0, dtype=torch.float32)
+        T.init_params(t_tiny(arch), seed=0, dtype=torch.float32,
+                      device="cpu")

@@ -1,5 +1,6 @@
 """PyTorch port: the copied scheduling layer makes the reference's decisions,
 and the port stands alone (no ``jax``, no ``repro`` import)."""
+import os
 import subprocess
 import sys
 
@@ -72,10 +73,11 @@ assert all(len(eng.output_tokens(r.id)) == 4 for r in reqs)
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
 print("OK")
 """
+    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"}
+    env.update({k: os.environ[k] for k in ("HOME", "TMPDIR")
+                if k in os.environ})
     out = subprocess.run([sys.executable, "-c", script],
-                         capture_output=True, text=True,
-                         env={"PYTHONPATH": "src", "PATH": "/usr/bin:/bin",
-                              "HOME": "/tmp"},
+                         capture_output=True, text=True, env=env,
                          cwd=__file__.rsplit("/", 2)[0], timeout=300)
     assert out.returncode == 0, out.stderr
     assert "OK" in out.stdout
