@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("decode_attention", "flash_attention_pool")
+KERNELS = ("decode_attention", "flash_attention_pool", "moe_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,6 +47,11 @@ ARGTYPES = {
         + [_P, _L, _L, _L] * 2      # k_scale, v_scale
         + [_P, _L, _L] * 2          # pos_q, pos_kv
         + [_P, _L, _L, _L]          # out
+        + [_P],                     # stream
+    "moe_gemm_launch":
+        [_I] * 5
+        + [_P, _L, _L] * 3          # x, w, out
+        + [_I, _I]                  # x_vec, w_vec
         + [_P],                     # stream
 }
 

@@ -1,11 +1,13 @@
-"""Wrappers of the CUDA attention kernels.
+"""Wrappers of the CUDA kernels: the two attention kernels and the grouped
+expert GEMM of the MoE FFN.
 
 A CPU tensor goes to the kernel's plain version in ``ref``; a CUDA tensor
 goes to the kernel or raises — there is no fallback.  Each wrapper checks
-device, dtype, shapes and the innermost (head_dim) stride, allocates the
-output, launches on PyTorch's current stream and raises if the launch was
-refused.  Other strides are passed through, so pool row views, ring
-prefixes and (B, C, H, hd) -> (B, H, C, hd) transposes need no copy.
+device, dtype, shapes and the innermost stride, allocates the output,
+launches on PyTorch's current stream and raises if the launch was refused.
+Other strides are passed through, so pool row views, ring prefixes,
+(B, C, H, hd) -> (B, H, C, hd) transposes and the MoE dispatch buffer's
+capacity slice need no copy.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, incremented
 only where a kernel is launched), so a run can show that its main path went
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0}
+LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0, "moe_gemm": 0}
 HEAD_DIMS = (32, 64, 128)
 DECODE_MAX_GROUP = 16  # query heads per kv head the decode kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -160,6 +162,53 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
         pos_kv.data_ptr(), *pos_kv.stride(),
         out.data_ptr(), *out.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _aligned16(t: torch.Tensor) -> int:
+    """1 when every row of ``t`` (all axes but the last) starts on a
+    16-byte boundary, so the kernel may read it in 16-byte vectors."""
+    es = t.element_size()
+    return int(t.data_ptr() % 16 == 0
+               and all(st * es % 16 == 0 for st in t.stride()[:-1]))
+
+
+def moe_gemm(x, w):
+    """Grouped expert GEMM: x (E, C, d) @ w (E, d, f) -> (E, C, f) in
+    x.dtype, f32 accumulation.  x and w share a dtype (float32 or
+    bfloat16); the last axis of each has stride 1, the others any stride.
+    C, d and f need not divide any tile."""
+    if x.device.type == "cpu":
+        return ref.moe_gemm(x, w)
+    name = "moe_gemm"
+    _require(x.device.type == "cuda", f"{name}: no kernel for {x.device}")
+    _require(w.device == x.device, f"{name}: w must be on {x.device}")
+    _require(x.dtype in _DTYPE_CODE and w.dtype == x.dtype,
+             f"{name}: x and w must both be float32 or bfloat16, got "
+             f"{x.dtype}/{w.dtype}")
+    _require(x.ndim == 3 and w.ndim == 3 and w.shape[0] == x.shape[0]
+             and w.shape[1] == x.shape[2],
+             f"{name}: shapes {tuple(x.shape)} @ {tuple(w.shape)} are not "
+             "(E, C, d) @ (E, d, f)")
+    E, C, d = x.shape
+    f = w.shape[2]
+    _require(min(E, C, d, f) >= 1 and E <= 65535,
+             f"{name}: empty or too many experts: {tuple(x.shape)} @ "
+             f"{tuple(w.shape)}")
+    _require(x.stride(2) == 1 and w.stride(2) == 1,
+             f"{name}: the last axis of x and w must have stride 1")
+    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    lib = build.load(name)
+    rc = lib.moe_gemm_launch(
+        _DTYPE_CODE[x.dtype], E, C, d, f,
+        x.data_ptr(), x.stride(0), x.stride(1),
+        w.data_ptr(), w.stride(0), w.stride(1),
+        out.data_ptr(), out.stride(0), out.stride(1),
+        _aligned16(x), _aligned16(w),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
     LAUNCHES[name] += 1

@@ -1,9 +1,10 @@
-"""Plain PyTorch versions of the two attention kernels (the allclose ground
-truth on the card, and what the wrappers in ``ops`` run for CPU tensors).
+"""Plain PyTorch versions of the kernels (the allclose ground truth on the
+card, and what the wrappers in ``ops`` run for CPU tensors).
 
 Same arguments, layouts and mask semantics as the Pallas kernels
-``repro.kernels.decode_attention.decode_attention`` and
-``repro.kernels.flash_attention.flash_attention_pool``: int8 K/V with f32
+``repro.kernels.decode_attention.decode_attention``,
+``repro.kernels.flash_attention.flash_attention_pool`` and
+``repro.kernels.moe_gemm.moe_gemm``: for attention, int8 K/V with f32
 scales, a static ``kv_limit`` on the ring extent, and a sliding window.
 Deliberately naive: direct softmax in f32 over the whole (limited) ring.
 Masked scores are -1e30, not -inf, as in the kernels, so a row with no valid
@@ -75,3 +76,9 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
     s = torch.where(ok[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def moe_gemm(x, w):
+    """Grouped expert GEMM: x (E, C, d) @ w (E, d, f) -> (E, C, f), f32
+    accumulation, output in x.dtype (``repro.kernels.ref.moe_gemm_ref``)."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)

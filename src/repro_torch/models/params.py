@@ -3,9 +3,10 @@
 The model's parameters are an ``nn.Module`` tree whose ``state_dict`` keys
 are the reference's tree paths (``embed.w``, ``blocks.0.attn.wq``, ...),
 with ``blocks`` leaves stacked on a leading repeats axis as in the
-reference.  ``nn.ModuleDict``/``nn.ParameterDict`` index like the nested
-dicts the model functions were written against, so the functions take
-either.
+reference.  Its nodes (``ParamTree``) index like the nested dicts the model
+functions were written against, so the functions take either.  A node may
+hold tensors and subtrees side by side, as the MoE block does (an f32
+``router`` beside the ``experts`` and ``shared`` subtrees).
 """
 from __future__ import annotations
 
@@ -14,13 +15,36 @@ import torch
 from torch import nn
 
 
+class ParamTree(nn.Module):
+    """One node of the parameter tree: tensors as parameters, subtrees as
+    submodules, indexed by name like a dict, in insertion order."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._names = list(tree)
+        for k, v in tree.items():
+            if isinstance(v, torch.Tensor):
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+            else:
+                self.add_module(k, ParamTree(v))
+
+    def __getitem__(self, key):
+        if key not in self._names:
+            raise KeyError(key)
+        return getattr(self, key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._names
+
+    def keys(self):
+        return list(self._names)
+
+
 def to_module(tree) -> nn.Module:
-    """Nested dict of tensors -> ``nn.ModuleDict`` of ``nn.ParameterDict``
-    leaves (inference weights: ``requires_grad=False``)."""
-    if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict({
-            k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
-    return nn.ModuleDict({k: to_module(v) for k, v in tree.items()})
+    """Nested dict of tensors -> ``ParamTree`` (inference weights:
+    ``requires_grad=False``)."""
+    return ParamTree(tree)
 
 
 def tree_from_state_dict(sd) -> dict:

@@ -1,8 +1,9 @@
 """Attention-family decoder: init, prefill/extend, masked slot-pool decode.
 
-PyTorch port of the serving half of ``repro.models.transformer`` for dense
-GQA decoders (the llama family).  One code path (``extend``) covers chunked
-prefill (C tokens against an existing cache) and decode (C == 1).
+PyTorch port of the serving half of ``repro.models.transformer`` for GQA
+decoders with a dense or MoE FFN (the llama and qwen2-moe families).  One
+code path (``extend``) covers chunked prefill (C tokens against an existing
+cache) and decode (C == 1).
 
 Differences from the reference, all forced by the frameworks:
 
@@ -18,10 +19,10 @@ Differences from the reference, all forced by the frameworks:
   bound but inactive row (mid-prefill, or preempted) would corrupt it.
 
 ``kernel_backend`` mirrors the reference's ``"xla" | "pallas"`` knob as
-``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention through
-``repro_torch.kernels.ops``, whose wrappers launch the CUDA kernels on CUDA
-tensors and fall to their plain versions only for CPU tensors; ``"plain"``
-runs ``models.attention``.
+``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention and the MoE
+expert products through ``repro_torch.kernels.ops``, whose wrappers launch
+the CUDA kernels on CUDA tensors and fall to their plain versions only for
+CPU tensors; ``"plain"`` runs ``models.attention`` and ``torch.einsum``.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from repro_torch.models import kvcache
 from repro_torch.models.attention import chunked_attention, decode_attention
 from repro_torch.models.layers import (apply_rope, embed_tokens, lm_logits,
                                        mlp, rms_norm)
+from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import to_module
 
 KERNEL_BACKENDS = ("plain", "cuda")
@@ -56,8 +58,8 @@ def layout(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port covers the dense GQA decoder so far; every other family
-    raises, naming the ROADMAP.md item that ports it."""
+    """The port covers GQA decoders with a dense or an all-MoE FFN so far;
+    every other family raises, naming the ROADMAP.md item that ports it."""
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and vision forms are not ported yet "
@@ -66,10 +68,10 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet "
             "(ROADMAP.md queue 1, item 8)")
-    if cfg.is_moe:
+    if cfg.is_moe and cfg.first_k_dense_layers:
         raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
+            f"{cfg.name}: dense head layers before the MoE trunk are not "
+            "ported yet (ROADMAP.md queue 1, item 8)")
     head, pattern, _, tail = layout(cfg)
     if head or tail or any(k != "attn" for k in pattern):
         raise NotImplementedError(
@@ -83,19 +85,52 @@ def _normal(gen, shape, std, dtype, device):
                         device=device) * std).to(dtype)
 
 
+def _stacked(gen, R, shape, std, dtype, device):
+    """A (R,) + shape leaf drawn one repeat at a time, so the f32 staging
+    buffer stays one layer's leaf."""
+    w = torch.empty((R,) + shape, dtype=dtype, device=device)
+    for r in range(R):
+        w[r] = _normal(gen, shape, std, dtype, device)
+    return w
+
+
+def _init_ffn(cfg, R, gen, dtype, device, d_ff):
+    d = cfg.d_model
+    out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
+    ffn = {"w1": _stacked(gen, R, (d, d_ff), 0.02, dtype, device),
+           "w2": _stacked(gen, R, (d_ff, d), out_std, dtype, device)}
+    if cfg.mlp_gated:
+        ffn["wg"] = _stacked(gen, R, (d, d_ff), 0.02, dtype, device)
+    return ffn
+
+
+def _init_moe(cfg, R, gen, dtype, device):
+    """Router (f32 whatever ``dtype``), experts stacked (R, E, ...), and the
+    shared experts fused into one gated MLP of ``num_shared_experts *
+    moe_d_ff`` (``repro.models.transformer._init_moe``'s scales)."""
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
+    experts = {"w1": _stacked(gen, R, (E, d, f), 0.02, dtype, device),
+               "w2": _stacked(gen, R, (E, f, d), out_std, dtype, device)}
+    if cfg.mlp_gated:
+        experts["wg"] = _stacked(gen, R, (E, d, f), 0.02, dtype, device)
+    p = {"router": _stacked(gen, R, (d, E), 0.02, torch.float32, device),
+         "experts": experts}
+    if cfg.num_shared_experts:
+        p["shared"] = _init_ffn(cfg, R, gen, dtype, device,
+                                cfg.num_shared_experts * cfg.moe_d_ff)
+    return p
+
+
 def _init_layer(cfg, R, gen, dtype, device):
-    """One stacked attention block: every leaf has a leading repeats axis.
-    Drawn one repeat at a time so the f32 staging buffer stays one layer."""
+    """One stacked attention block: every leaf has a leading repeats axis."""
     d = cfg.d_model
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     std = 0.02
     out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
 
     def stacked(shape, s):
-        w = torch.empty((R,) + shape, dtype=dtype, device=device)
-        for r in range(R):
-            w[r] = _normal(gen, shape, s, dtype, device)
-        return w
+        return _stacked(gen, R, shape, s, dtype, device)
 
     ones = lambda: torch.ones((R, d), dtype=dtype, device=device)
     attn = {"wq": stacked((d, Hq * hd), std),
@@ -105,12 +140,12 @@ def _init_layer(cfg, R, gen, dtype, device):
     if cfg.qkv_bias:
         for n, width in (("bq", Hq * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
             attn[n] = torch.zeros((R, width), dtype=dtype, device=device)
-    ffn = {"w1": stacked((d, cfg.d_ff), std),
-           "w2": stacked((cfg.d_ff, d), out_std)}
-    if cfg.mlp_gated:
-        ffn["wg"] = stacked((d, cfg.d_ff), std)
-    return {"norm1": {"w": ones()}, "norm2": {"w": ones()},
-            "attn": attn, "ffn": ffn}
+    p = {"norm1": {"w": ones()}, "norm2": {"w": ones()}, "attn": attn}
+    if cfg.is_moe:
+        p["moe"] = _init_moe(cfg, R, gen, dtype, device)
+    else:
+        p["ffn"] = _init_ffn(cfg, R, gen, dtype, device, cfg.d_ff)
+    return p
 
 
 def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
@@ -222,13 +257,28 @@ def _attn_mix_extend(cfg, ap, x, st, ctx):
     return out.reshape(B, C, Hq * hd) @ ap["wo"]
 
 
+def _ffn_apply(cfg, lp, x, ctx):
+    """FFN / MoE sublayer on (B, C, d).  A decode step (C == 1, as the
+    reference's ``extend`` sets its mode) is dropless, capacity B; a
+    prefill chunk uses ``moe_ffn``'s capacity factor, 1.25 (the
+    reference's default).  The MoE aux loss is dropped, as the reference's
+    ``extend`` drops it."""
+    if "moe" not in lp:
+        return mlp(x, lp["ffn"], cfg.mlp_gated)
+    B, C, d = x.shape
+    y, _ = moe_ffn(x.reshape(B * C, d), lp["moe"], cfg,
+                   capacity_override=B * C if C == 1 else 0,
+                   kernel_backend=ctx["kernel_backend"])
+    return y.reshape(B, C, d)
+
+
 def apply_block(cfg, lp, x, st, ctx):
     """One residual attention block over (B, C, d); ``st`` is updated in
     place."""
     h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
     x = x + _attn_mix_extend(cfg, lp["attn"], h, st, ctx)
     h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
-    return x + mlp(h2, lp["ffn"], cfg.mlp_gated)
+    return x + _ffn_apply(cfg, lp, h2, ctx)
 
 
 def _at(tree, r):

@@ -39,6 +39,7 @@ SHARDS: Dict[str, List[str]] = {
         "test_hlocost.py",
         "test_train_data.py",
         "test_torch_models.py",
+        "test_torch_moe.py",
     ],
     "serving": [
         "test_prefix_cache.py",

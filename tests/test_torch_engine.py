@@ -63,13 +63,15 @@ def _serve(engine, req_cls, prio, flows, out_tokens=10):
     return metrics, seen
 
 
-@pytest.mark.parametrize("kw", [
-    {},
-    {"kv_dtype": "int8"},
-    {"max_fused_steps": 1},
-], ids=["fused", "int8", "per_step"])
-def test_engine_matches_reference(kw):
-    jcfg, tcfg = j_tiny(ARCH), t_tiny(ARCH)
+@pytest.mark.parametrize("arch,kw", [
+    (ARCH, {}),
+    (ARCH, {"kv_dtype": "int8"}),
+    (ARCH, {"max_fused_steps": 1}),
+    ("qwen2-moe-a2.7b", {}),
+    ("qwen2-moe-a2.7b", {"max_fused_steps": 1}),
+], ids=["fused", "int8", "per_step", "moe_fused", "moe_per_step"])
+def test_engine_matches_reference(arch, kw):
+    jcfg, tcfg = j_tiny(arch), t_tiny(arch)
     jp = j_init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
     tp = module_from_state_dict(from_jax_params(
         jax.tree_util.tree_map(np.asarray, jp)))

@@ -17,7 +17,7 @@ from repro.configs import get_tiny_config as j_tiny
 from repro_torch import models as T
 from repro_torch.configs import get_tiny_config as t_tiny
 
-ARCHS = ["llama3-405b", "llama3.2-3b"]
+ARCHS = ["llama3-405b", "llama3.2-3b", "qwen2-moe-a2.7b"]
 
 
 def _weights(arch, dtype=jnp.float32):
@@ -39,9 +39,12 @@ def _close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_from_jax_params_round_trips(dtype):
-    jcfg, jp, _, tp = _weights("llama3.2-3b", dtype)
+def test_from_jax_params_round_trips(dtype, arch):
+    """Every leaf bit for bit, under the reference's tree paths; the MoE
+    tree keeps its f32 router beside bf16 experts."""
+    jcfg, jp, _, tp = _weights(arch, dtype)
     sd = tp.state_dict()
     flat = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
                      for k in path): np.asarray(leaf)
@@ -49,6 +52,13 @@ def test_from_jax_params_round_trips(dtype):
     assert set(sd) == set(flat)
     assert "blocks.0.attn.wq" in sd and sd["blocks.0.attn.wq"].shape[0] == \
         jcfg.num_layers
+    if jcfg.is_moe:
+        assert sd["blocks.0.moe.router"].dtype == torch.float32
+        assert sd["blocks.0.moe.experts.w1"].shape == (
+            jcfg.num_layers, jcfg.num_experts, jcfg.d_model, jcfg.moe_d_ff)
+        assert "blocks.0.moe.shared.wg" in sd
+        assert torch.equal(tp["blocks"]["0"]["moe"]["router"],
+                           sd["blocks.0.moe.router"])
     for name, a in flat.items():
         t = sd[name]
         if a.dtype.name == "bfloat16":
@@ -155,13 +165,14 @@ def _row(pool, slot):
         for x in st.values()]
 
 
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b"])
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
-def test_decode_run_matches_jax_and_is_exact_in_torch(backend):
+def test_decode_run_matches_jax_and_is_exact_in_torch(backend, arch):
     """Masked decode vs the reference's decode_step (logits) and
     decode_run (tokens, final positions); in torch, fused == per-step and
     elastic == full pool bit for bit, and the bound-but-inactive row 2
     (mid-prefill) and the empty row 3 are untouched."""
-    jcfg, jp, tcfg, tp = _weights("llama3-405b")
+    jcfg, jp, tcfg, tp = _weights(arch)
     lens, max_len, n = [11, 14, 9, 0], 64, 5
     toks = _tokens(jcfg, (4, 16))
     jpool = _j_pool(jcfg, jp, lens, toks, max_len)
@@ -265,10 +276,15 @@ def test_int8_payload_bytes_equal_and_scales_within_one_ulp():
                      <= ts[..., None] / 2 + 1e-7)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "rwkv6-1.6b",
-                                  "deepseek-v2-lite-16b", "whisper-tiny",
-                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "deepseek-v2-lite-16b",
+                                  "whisper-tiny", "recurrentgemma-9b"])
 def test_unported_families_raise_naming_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(t_tiny(arch), seed=0, dtype=torch.float32,
                       device="cpu")
+
+
+def test_moe_with_dense_head_layers_raises_naming_roadmap():
+    cfg = t_tiny("qwen2-moe-a2.7b").with_overrides(first_k_dense_layers=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")

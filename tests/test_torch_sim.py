@@ -34,8 +34,9 @@ def test_pow2_buckets_match_reference():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module imports, and a CPU serve runs, with ``jax``
-    and ``repro`` blocked in ``sys.meta_path``."""
+    """Every repro_torch module imports (``models/moe.py`` among them), and
+    CPU serves of a dense and an MoE model run, with ``jax`` and ``repro``
+    blocked in ``sys.meta_path``."""
     script = r"""
 import sys
 
@@ -53,23 +54,25 @@ import torch
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+assert "repro_torch.models.moe" in sys.modules
 
 from repro_torch.configs import get_tiny_config
 from repro_torch.core import Priority, Request
 from repro_torch.core.engine import RealAgentXPUEngine
 from repro_torch.models import init_params
 
-cfg = get_tiny_config("llama3.2-3b")
-params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
-eng = RealAgentXPUEngine(cfg, params, max_len=64, device="cpu")
-rng = np.random.default_rng(0)
-reqs = [Request(id=i, priority=Priority.PROACTIVE, prompt_len=9 + i,
-                max_new_tokens=4, arrival_time=0.0,
-                tokens=rng.integers(0, cfg.vocab_size, (1, 9 + i)))
-        for i in range(2)]
-m = eng.serve(reqs)
-assert len(m.completed) == 2
-assert all(len(eng.output_tokens(r.id)) == 4 for r in reqs)
+for arch in ("llama3.2-3b", "qwen2-moe-a2.7b"):
+    cfg = get_tiny_config(arch)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    eng = RealAgentXPUEngine(cfg, params, max_len=64, device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(id=i, priority=Priority.PROACTIVE, prompt_len=9 + i,
+                    max_new_tokens=4, arrival_time=0.0,
+                    tokens=rng.integers(0, cfg.vocab_size, (1, 9 + i)))
+            for i in range(2)]
+    m = eng.serve(reqs)
+    assert len(m.completed) == 2, arch
+    assert all(len(eng.output_tokens(r.id)) == 4 for r in reqs), arch
 assert not any(k.split(".")[0] in ("jax", "repro") for k in sys.modules)
 print("OK")
 """
