@@ -16,6 +16,7 @@ when run outside the repository.  Imports no JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -491,6 +492,14 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _release():
+    """Free the device memory of engines dropped so far: an engine's
+    objects refer to each other in cycles, which only the collector
+    frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True):
     done = {r.id: r for r in metrics.completed}
     for f in flows:
@@ -642,7 +651,7 @@ def profile_serve(cfg, params, flows):
         eng, _, wall, _, _, _ = serve(cfg, params, flows, device="cuda",
                                       dtype=torch.bfloat16)
     del eng
-    torch.cuda.empty_cache()
+    _release()
     from torch.autograd import DeviceType
     # device-side events only (kernels, copies): CPU operator rows would
     # count their kernels' time a second time
@@ -744,7 +753,7 @@ def bf16_serve(cfg, params):
     serve_stats.update(plain_exact=exact, plain_total=total,
                        plain_worst_gap=worst)
     del eng
-    torch.cuda.empty_cache()
+    _release()
     serve_stats["profile"] = profile_serve(cfg, params, flows)
     return serve_stats
 
@@ -796,7 +805,7 @@ def main():
     phase_done("kernels")
     serve_stats = serve_phase()
     phase_done(ARCH)
-    torch.cuda.empty_cache()
+    _release()  # the llama weights and pools, before the MoE weights
     moe_stats = moe_serve_phase()
     phase_done(MOE_ARCH)
     # launches of each kernel in the main-path runs, each counted from 0
