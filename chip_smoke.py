@@ -8,9 +8,11 @@ times both, serves ``llama3.2-3b`` at full width (bf16, random weights from
 a seeded device generator) through the port's ``RealAgentXPUEngine``,
 checks every served token against the plain path on the same card, repeats
 a shorter serve with an int8 KV pool, serves ``qwen2-moe-a2.7b`` (the MoE
-path: 60 routed experts through the grouped expert GEMM kernel) at full
-width the same way, and prints the kernel table as JSON and, as its last
-line, ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
+path: 60 routed experts through the grouped expert GEMM kernel),
+``recurrentgemma-9b`` (RG-LRU through the ``rglru_scan`` kernel beside local
+attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
+``rwkv6_scan`` kernel) at full width the same way, and prints the kernel
+table as JSON and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises, and the
 script exits non-zero without that line — also when no GPU is visible or
 when run outside the repository.  Imports no JAX.
 """
@@ -32,6 +34,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 ARCH = "llama3.2-3b"
 MOE_ARCH = "qwen2-moe-a2.7b"
+RG_ARCH = "recurrentgemma-9b"
+RWKV_ARCH = "rwkv6-1.6b"
 SEED = 0
 MAX_LEN = 2048
 POOL = 16
@@ -41,23 +45,34 @@ OUT_TOKENS = 32
 # int8 K/V cases are held to the bf16 rate too)
 HBM_BYTES_S = 3.35e12
 PEAK_BF16_OPS_S = 989e12
+# f32 outside the tensor cores: the scans' arithmetic
+PEAK_F32_OPS_S = 67e12
 # kernel vs plain: both accumulate in f32 and round once to the bf16 output,
 # so a sound kernel differs by at most one bf16 ulp (2^-7 relative) of an
 # element; the limit is two ulps of the largest plain output.  Scaled this
 # way it stays far below the change that one dropped 64-slot tile makes
 # (measured for every case below, and required to exceed the limit); for
 # the expert GEMM the planted fault is one 64-wide slice of the d reduction
-# zeroed
+# zeroed, for the scans one token's update skipped
 KERNEL_TOL_REL = 4 * 2.0 ** -8
 DROP_TILE = 64
 # served token vs the plain path's argmax: the kernel and plain attention
 # round differently in bf16 across 28 layers, so a served token may be a
 # near-tie of the plain argmax; accept a gap of at most this many logit units
 LOGIT_MARGIN = 0.25
+# rwkv6-1.6b at random init is too ill-conditioned in bf16 for the token
+# check: two sound bf16 evaluations of it (the plain path with the prompt in
+# the engine's chunks and in one call) land further apart than LOGIT_MARGIN
+# (PERF.md, PR 13).  Its bf16 serve's gaps are measured beside that noise
+# floor, and its served tokens are held to LOGIT_MARGIN in an f32 serve
+F32_TOKEN_CHECK = (RWKV_ARCH,)
 # kernels each served path must launch with kernel_backend="cuda"
 PATH_KERNELS = {ARCH: ("decode_attention", "flash_attention_pool"),
                 MOE_ARCH: ("decode_attention", "flash_attention_pool",
-                           "moe_gemm")}
+                           "moe_gemm"),
+                RG_ARCH: ("decode_attention", "flash_attention_pool",
+                          "rglru_scan"),
+                RWKV_ARCH: ("rwkv6_scan",)}
 
 
 def log(*a):
@@ -83,6 +98,12 @@ def device_phase():
 _FLUSH = None
 
 
+# device cycles the stream spins before a timed run (~0.5 ms): the host
+# enqueues the run's launches meanwhile, so the start event times the
+# device's work and not the wrapper's Python
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, reps=25):
     """Median device time of ``fn`` over ``reps`` runs (CUDA events), the
     50 MB L2 flushed before each run as the serving path finds it cold."""
@@ -94,6 +115,7 @@ def time_ms(fn, reps=25):
     out = []
     for _ in range(reps):
         _FLUSH.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s, e = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         s.record()
@@ -130,22 +152,30 @@ def _kv(gen, shape, dtype, int8):
 
 
 def decode_cases(gen):
-    """The C == 1 calls of the serving paths: B=16 rows, hd 128, a
-    2048-slot ring read to kv_limit 1024 or 2048, bf16 or int8; 24/8 heads
-    (llama3.2-3b, G = 3) or 16/16 (qwen2-moe-a2.7b, G = 1)."""
-    B, hd, S = 16, 128, MAX_LEN
+    """The C == 1 calls of the serving paths: B=16 rows, a 2048-slot ring
+    read to kv_limit 1024 or 2048, bf16 or int8; 24/8 heads of 128
+    (llama3.2-3b, G = 3), 16/16 of 128 (qwen2-moe-a2.7b, G = 1) or 16/1 of
+    256 in a 2048-token window (recurrentgemma-9b, G = 16)."""
+    B, S = 16, MAX_LEN
     cases = []
-    for name, kvl, int8, window, wrap, rows, (Hq, Hkv) in [
-            ("bf16 kvl=2048", 2048, False, None, None, None, (24, 8)),
-            ("bf16 kvl=1024", 1024, False, None, None, None, (24, 8)),
-            ("int8 kvl=2048", 2048, True, None, None, None, (24, 8)),
-            ("int8 kvl=1024", 1024, True, None, None, None, (24, 8)),
-            ("bf16 window=256", 2048, False, 256, None, None, (24, 8)),
-            ("bf16 wrapped ring", 2048, False, None, 3000, None, (24, 8)),
+    for name, kvl, int8, window, wrap, rows, (Hq, Hkv, hd) in [
+            ("bf16 kvl=2048", 2048, False, None, None, None, (24, 8, 128)),
+            ("bf16 kvl=1024", 1024, False, None, None, None, (24, 8, 128)),
+            ("int8 kvl=2048", 2048, True, None, None, None, (24, 8, 128)),
+            ("int8 kvl=1024", 1024, True, None, None, None, (24, 8, 128)),
+            ("bf16 window=256", 2048, False, 256, None, None, (24, 8, 128)),
+            ("bf16 wrapped ring", 2048, False, None, 3000, None,
+             (24, 8, 128)),
             ("bf16 row view 2:10 x 1024", 1024, False, None, None, (2, 10),
-             (24, 8)),
-            ("G=1 bf16 kvl=2048", 2048, False, None, None, None, (16, 16)),
-            ("G=1 int8 kvl=2048", 2048, True, None, None, None, (16, 16))]:
+             (24, 8, 128)),
+            ("G=1 bf16 kvl=2048", 2048, False, None, None, None,
+             (16, 16, 128)),
+            ("G=1 int8 kvl=2048", 2048, True, None, None, None,
+             (16, 16, 128)),
+            ("hd256 G=16 bf16 kvl=2048 window=2048", 2048, False, 2048, None,
+             None, (16, 1, 256)),
+            ("hd256 G=16 bf16 kvl=1024 window=2048", 1024, False, 2048, None,
+             None, (16, 1, 256))]:
         k, ks = _kv(gen, (B, S, Hkv, hd), torch.bfloat16, int8)
         v, vs = _kv(gen, (B, S, Hkv, hd), torch.bfloat16, int8)
         q = torch.randn((B, Hq, hd), generator=gen,
@@ -199,22 +229,28 @@ def decode_drop_tile(args):
 
 def pool_cases(gen):
     """The C > 1 calls of the serving paths: one row, a C = 128 or 512
-    chunk against a 2048-slot ring; 24 query heads on 8 kv heads (G = 3)
-    or 16 on 16 (G = 1)."""
-    hd, S = 128, MAX_LEN
+    chunk against a 2048-slot ring; 24 query heads on 8 kv heads of 128
+    (G = 3), 16 on 16 (G = 1), or 16 on 1 of 256 in a 2048-token window
+    (G = 16)."""
+    S = MAX_LEN
     cases = []
-    for name, C, int8, window, wrap, strided, (Hq, Hkv) in [
-            ("bf16 C=512", 512, False, None, None, False, (24, 8)),
-            ("bf16 C=128", 128, False, None, None, False, (24, 8)),
-            ("int8 C=512", 512, True, None, None, False, (24, 8)),
-            ("int8 C=128", 128, True, None, None, False, (24, 8)),
-            ("bf16 C=128 window=256", 128, False, 256, None, False, (24, 8)),
+    for name, C, int8, window, wrap, strided, (Hq, Hkv, hd) in [
+            ("bf16 C=512", 512, False, None, None, False, (24, 8, 128)),
+            ("bf16 C=128", 128, False, None, None, False, (24, 8, 128)),
+            ("int8 C=512", 512, True, None, None, False, (24, 8, 128)),
+            ("int8 C=128", 128, True, None, None, False, (24, 8, 128)),
+            ("bf16 C=128 window=256", 128, False, 256, None, False,
+             (24, 8, 128)),
             ("bf16 C=128 wrapped ring", 128, False, None, 3000, False,
-             (24, 8)),
+             (24, 8, 128)),
             ("bf16 C=128 row view of 4-row pool", 128, False, None, None,
-             True, (24, 8)),
-            ("G=1 bf16 C=512", 512, False, None, None, False, (16, 16)),
-            ("G=1 bf16 C=128", 128, False, None, None, False, (16, 16))]:
+             True, (24, 8, 128)),
+            ("G=1 bf16 C=512", 512, False, None, None, False, (16, 16, 128)),
+            ("G=1 bf16 C=128", 128, False, None, None, False, (16, 16, 128)),
+            ("hd256 G=16 bf16 C=512 window=2048", 512, False, 2048, None,
+             False, (16, 1, 256)),
+            ("hd256 G=16 bf16 C=128 window=2048", 128, False, 2048, None,
+             False, (16, 1, 256))]:
         nb = 4 if strided else 1
         k, ks = _kv(gen, (nb, S, Hkv, hd), torch.bfloat16, int8)
         v, vs = _kv(gen, (nb, S, Hkv, hd), torch.bfloat16, int8)
@@ -329,6 +365,96 @@ def moe_drop_slice(args):
     return x, w
 
 
+def rglru_cases(gen):
+    """The RG-LRU recurrence of recurrentgemma-9b (lru_width 4096) as
+    ``ssm.rglru_block`` calls it: x and the input gate bf16, a_log f32
+    (-8 softplus(lam) sigmoid(.) < 0), a nonzero f32 h0; a 512-token
+    prefill bucket of one row and a 16-row decode step."""
+    W = 4096
+    cases = []
+    for name, B, S in [("prefill B=1 S=512 W=4096", 1, 512),
+                       ("decode B=16 S=1 W=4096", 16, 1)]:
+        x = torch.randn((B, S, W), generator=gen, device="cuda").bfloat16()
+        gate = torch.sigmoid(torch.randn((B, S, W), generator=gen,
+                                         device="cuda")).bfloat16()
+        a_log = -6.4 * torch.sigmoid(torch.randn((B, S, W), generator=gen,
+                                                 device="cuda"))
+        h0 = torch.randn((B, W), generator=gen, device="cuda")
+        cases.append((name, (x, a_log, gate, h0), {}, False))
+    return cases
+
+
+def rglru_work(args, kw):
+    """(bytes, operations): every input read once, h and h_final written
+    once; 8 f32 operations an element (exp, a a, 1 -, max, sqrt, gate x,
+    two FMAs)."""
+    x, a_log, gate, h0 = args
+    return nbytes(x, a_log, gate, h0) + nbytes(x, h0), 8 * x.numel()
+
+
+def rglru_skip(args):
+    """The same inputs with the middle token's update skipped (a = 1, x =
+    0: h_t = h_{t-1}): what a kernel that dropped a step would compute."""
+    x, a_log, gate, h0 = args
+    t = x.shape[1] // 2
+    x, a_log = x.clone(), a_log.clone()
+    x[:, t], a_log[:, t] = 0, 0
+    return x, a_log, gate, h0
+
+
+def rwkv6_cases(gen):
+    """The WKV6 recurrence of rwkv6-1.6b (32 heads of 64) as
+    ``ssm.rwkv6_block`` calls it: r/k/v bf16 and w_log f32 as (B, S, H, D)
+    -> (B, H, S, D) head-split views, u the (H, 1, D) bf16 bonus, a nonzero
+    f32 state0; a 512-token prefill bucket of one row (B*H 32) and a 16-row
+    decode step (B*H 512)."""
+    H, D = 32, 64
+    cases = []
+    for name, B, S in [("prefill BH=32 S=512 D=64", 1, 512),
+                       ("decode BH=512 S=1 D=64", 16, 1)]:
+        def split(x):
+            return x.reshape(B, S, H, D).transpose(1, 2)
+        r, k, v = (split(torch.randn((B, S, H * D), generator=gen,
+                                     device="cuda").bfloat16() * 0.5)
+                   for _ in range(3))
+        w_log = split(-torch.exp(torch.clamp(
+            0.5 + 0.5 * torch.randn((B, S, H * D), generator=gen,
+                                    device="cuda"), -8.0, 1.0)))
+        u = (torch.randn((H, 1, D), generator=gen, device="cuda")
+             * 0.3).bfloat16()
+        state0 = torch.randn((B, H, D, D), generator=gen,
+                             device="cuda") * 0.3
+        cases.append((name, (r, k, v, w_log, u, state0), {}, False))
+    return cases
+
+
+def rwkv6_work(args, kw):
+    """(bytes, operations): r, k, v, w_log, u and state0 read once, the
+    output and the final state written once; ~6 D^2 f32 operations a token
+    per (row, head): r S and r u k (2 D^2), the state decay and update
+    (3 D^2), and the bonus term."""
+    r, k, v, w_log, u, state0 = args
+    B, H, S, D = r.shape
+    return (nbytes(r, k, v, w_log, u, state0) + nbytes(r, state0),
+            6 * B * H * S * D * D)
+
+
+def rwkv6_skip(args):
+    """The same inputs with the middle token's update skipped (k = 0, decay
+    1: the state passes it unchanged)."""
+    r, k, v, w_log, u, state0 = args
+    t = r.shape[2] // 2
+    k, w_log = k.clone(), w_log.clone()
+    k[:, :, t], w_log[:, :, t] = 0, 0
+    return r, k, v, w_log, u, state0
+
+
+def _flat(out):
+    """A kernel's output(s) as one flat f32 vector."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.cat([o.float().flatten() for o in outs])
+
+
 def kernel_phase():
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda")
@@ -342,18 +468,24 @@ def kernel_phase():
              ops.flash_attention_pool, ref.flash_attention_pool, pool_work,
              pool_drop_tile),
             ("moe_gemm", moe_cases(gen), ops.moe_gemm, ref.moe_gemm,
-             moe_work, moe_drop_slice)]:
-        fault_name = (f"one zeroed {DROP_TILE}-wide d slice"
-                      if kname == "moe_gemm"
-                      else f"one dropped {DROP_TILE}-slot tile")
+             moe_work, moe_drop_slice),
+            ("rglru_scan", rglru_cases(gen), ops.rglru_scan, ref.rglru_scan,
+             rglru_work, rglru_skip),
+            ("rwkv6_scan", rwkv6_cases(gen), ops.rwkv6_scan, ref.rwkv6_scan,
+             rwkv6_work, rwkv6_skip)]:
+        fault_name = {"moe_gemm": f"one zeroed {DROP_TILE}-wide d slice",
+                      "rglru_scan": "one token's update skipped",
+                      "rwkv6_scan": "one token's update skipped"}.get(
+                          kname, f"one dropped {DROP_TILE}-slot tile")
+        scan = kname in ("rglru_scan", "rwkv6_scan")
         for name, args, kw, int8 in cases:
-            got = kfn(*args, **kw)
+            got = _flat(kfn(*args, **kw))
             torch.cuda.synchronize()
-            want = rfn(*args, **kw).float()
-            err = (got.float() - want).abs().max().item()
+            want = _flat(rfn(*args, **kw))
+            err = (got - want).abs().max().item()
             tol = KERNEL_TOL_REL * want.abs().max().item()
             typical = want.abs().mean().item()
-            fault = (rfn(*drop_tile(args), **kw).float()
+            fault = (_flat(rfn(*drop_tile(args), **kw))
                      - want).abs().max().item()
             log(f"[check] {kname:20s} {name:34s} err {err:.2e} tol "
                 f"{tol:.2e} (err/tol {err / tol:.3f}, err/mean|out| "
@@ -368,10 +500,10 @@ def kernel_phase():
                     f"{fault_name} ({fault})")
             ms = time_ms(lambda: kfn(*args, **kw))
             plain_ms = time_ms(lambda: rfn(*args, **kw), reps=20)
-            lib_ms = None
+            lib_ms = None  # the scans: no one PyTorch call computes them
             if kname == "moe_gemm":
                 lib_ms = time_ms(lambda: torch.bmm(*args))
-            elif not int8:
+            elif not int8 and not scan:
                 if kname == "decode_attention":
                     lib = _library_decode(*args, kw["window"],
                                           kw["kv_limit"])
@@ -380,13 +512,14 @@ def kernel_phase():
                 lib_ms = time_ms(lib)
             moved, ops_n = work(args, kw)
             t_bytes = moved / HBM_BYTES_S * 1e3
-            t_ops = ops_n / PEAK_BF16_OPS_S * 1e3
+            t_ops = ops_n / (PEAK_F32_OPS_S if scan else PEAK_BF16_OPS_S) \
+                * 1e3
             bound = max(t_bytes, t_ops)
             rows[(kname, name)] = dict(
                 max_abs_err=err, tol=tol, dropped_tile_err=fault, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
-            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f}"
+            lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
             log(f"[kernel] {kname:20s} {name:34s} kernel {ms:.4f} ms plain "
                 f"{plain_ms:.4f} ms library {lib_txt} ms bound "
                 f"{bound:.4f} ms ({rows[(kname, name)]['bound_by']}) "
@@ -500,6 +633,19 @@ def _release():
     torch.cuda.empty_cache()
 
 
+def forward_launches(cfg):
+    """Kernel launches one forward call of ``cfg`` makes on the kernel path
+    (``attention``: decode or pool, by the call's token count)."""
+    from repro_torch.models import layout
+    head, pattern, repeats, tail = layout(cfg)
+    kinds = list(head) + list(pattern) * repeats + list(tail)
+    n_attn = kinds.count("attn")
+    return {"attention": n_attn,
+            "moe_gemm": 3 * n_attn if cfg.is_moe else 0,
+            "rglru_scan": kinds.count("rglru"),
+            "rwkv6_scan": kinds.count("rwkv6")}
+
+
 def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True):
     done = {r.id: r for r in metrics.completed}
     for f in flows:
@@ -515,17 +661,17 @@ def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True):
     if not all(launches[k] for k in want):
         raise AssertionError(f"[{label}] a kernel of {want} never launched: "
                              f"{launches}")
-    # one attention launch per layer per forward call; with MoE layers,
-    # three expert GEMMs per layer too
-    forwards, rest = divmod(launches["decode_attention"]
-                            + launches["flash_attention_pool"],
-                            cfg.num_layers)
-    moe_want = 3 * cfg.num_layers * forwards if cfg.is_moe else 0
-    if rest or launches["moe_gemm"] != moe_want:
+    # per forward call: one attention launch (decode or pool) per attention
+    # layer, three expert GEMMs per MoE layer, one scan per recurrent layer
+    per_call = forward_launches(cfg)
+    got = dict(launches, attention=launches["decode_attention"]
+               + launches["flash_attention_pool"])
+    forwards = {got[k] / n for k, n in per_call.items() if n}
+    if len(forwards) != 1 or any(got[k] for k, n in per_call.items()
+                                 if not n):
         raise AssertionError(
-            f"[{label}] launches {launches} are not {cfg.num_layers} "
-            f"attention launches and {moe_want // max(forwards, 1)} expert "
-            f"GEMMs per forward call")
+            f"[{label}] launches {launches} are not {per_call} per forward "
+            f"call")
     if not st["host_syncs"] < decode_tokens:
         raise AssertionError(f"[{label}] host_syncs {st['host_syncs']} >= "
                              f"{decode_tokens} decode tokens")
@@ -589,14 +735,15 @@ def _routing_at(cfg, params, f, served, chunks, i, *, dtype, kv_dtype,
 
 
 def plain_check(cfg, params, eng, flows, *, dtype, kv_dtype=None,
-                chunks=None):
+                chunks=None, gate=True):
     """Teacher-forced plain path on the card: each flow's prompt (in the
     engine's own prefill chunks when ``chunks`` is given: MoE capacity
     depends on a call's token count), then its served tokens one at a
     time, through ``extend`` with ``kernel_backend="plain"``; every served
-    token must be the plain argmax or within LOGIT_MARGIN of it.  For MoE,
-    a token outside the margin is first traced to a routing flip or not.
-    Returns (exact matches, tokens, largest gap)."""
+    token must be the plain argmax or within LOGIT_MARGIN of it (``gate``;
+    otherwise the gaps are only measured).  For MoE, a token outside the
+    margin is first traced to a routing flip or not.  Returns (exact
+    matches, tokens, largest gap)."""
     exact = total = 0
     worst, at = 0.0, None
     for f in flows:
@@ -611,7 +758,7 @@ def plain_check(cfg, params, eng, flows, *, dtype, kv_dtype=None,
             total += 1
             if gap > worst:
                 worst, at = gap, (f, served, fc, i)
-            if gap > LOGIT_MARGIN:
+            if gate and gap > LOGIT_MARGIN:
                 raise AssertionError(
                     f"flow {f['id']} token {i}: served {t} is {gap:.4f} "
                     f"below the plain argmax {int(lg.argmax())} "
@@ -624,6 +771,24 @@ def plain_check(cfg, params, eng, flows, *, dtype, kv_dtype=None,
             + _routing_flips(cfg, params, *at, dtype=dtype,
                              kv_dtype=kv_dtype))
     return exact, total, worst
+
+
+def plain_noise_floor(cfg, params, eng, flows, chunks, *, dtype):
+    """The plain path against itself: each flow teacher-forced on its
+    served tokens with the prompt in the engine's chunks and in one call
+    (the same function; only bf16 rounding differs).  Returns the largest
+    gap of the first's argmax under the second's logits: how far apart two
+    sound evaluations of the model land."""
+    worst = 0.0
+    for f in flows:
+        served = eng.output_tokens(f["id"])
+        kw = dict(dtype=dtype, kv_dtype=None, backend="plain")
+        a = _teacher_forced(cfg, params, f, served, chunks[f["id"]], **kw)
+        b = _teacher_forced(cfg, params, f, served, None, **kw)
+        for la, lb in zip(a, b):
+            la, lb = la[0].float(), lb[0].float()
+            worst = max(worst, (lb.max() - lb[la.argmax()]).item())
+    return worst
 
 
 def _routing_flips(cfg, params, f, served, chunks, i, *, dtype, kv_dtype):
@@ -646,6 +811,7 @@ def profile_serve(cfg, params, flows):
     """The same bf16 serve again under ``torch.profiler``: device busy time
     by kernel, and its share of the (profiled, so slower) wall time."""
     from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng, _, wall, _, _, _ = serve(cfg, params, flows, device="cuda",
@@ -665,7 +831,8 @@ def profile_serve(cfg, params, flows):
     log(f"[profile] {cfg.name} bf16 serve under the profiler: wall "
         f"{wall:.3f} s, "
         f"device busy {busy_ms / 1e3:.3f} s ({busy_ms / 1e3 / wall:.3f} of "
-        f"wall, idle {1 - busy_ms / 1e3 / wall:.3f})")
+        f"wall, idle {1 - busy_ms / 1e3 / wall:.3f}); the phase with the "
+        f"trace's processing took {time.perf_counter() - t0:.1f} s")
     for name, t in top:
         log(f"[profile]   {t:10.2f} ms  {name[:90]}")
     return dict(wall_s=wall, device_busy_s=busy_ms / 1e3,
@@ -684,10 +851,17 @@ def _init(arch):
     moe = (f", {cfg.num_experts} experts top-{cfg.moe_top_k} d_ff "
            f"{cfg.moe_d_ff} + {cfg.num_shared_experts} shared"
            if cfg.is_moe else "")
+    heads = (f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim}"
+             if cfg.num_heads else
+             f"WKV heads {cfg.d_model // cfg.ssm_head_dim} of "
+             f"{cfg.ssm_head_dim}")
+    if cfg.layer_pattern:
+        heads += (f" window {cfg.sliding_window}, pattern "
+                  f"{cfg.layer_pattern} x {cfg.pattern_repeats} + "
+                  f"{cfg.tail_pattern}, lru_width {cfg.lru_width}")
     log(f"[serve] {arch}: {cfg.num_layers} layers d_model {cfg.d_model} "
-        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim}{moe} "
-        f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params bf16, random "
-        f"(seed {SEED}), init {time.perf_counter() - t0:.1f} s")
+        f"{heads}{moe} vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
+        f"bf16, random (seed {SEED}), init {time.perf_counter() - t0:.1f} s")
     return cfg, params
 
 
@@ -742,16 +916,31 @@ def bf16_serve(cfg, params):
         + json.dumps(serve_stats["first_token_from_start_wall_s"])
         + "; scheduler-clock TTFT (sim s): "
         + json.dumps(serve_stats["ttft_sim_s"]))
+    # MoE capacity depends on a call's token count, so the plain path
+    # replays the engine's prefill chunks; the recurrent families replay
+    # them too, so their states cross the same chunk boundaries
+    replay = cfg.is_moe or cfg.name in (RG_ARCH, RWKV_ARCH)
+    gate = cfg.name not in F32_TOKEN_CHECK
+    t0 = time.perf_counter()
     exact, total, worst = plain_check(
         cfg, params, eng, flows, dtype=torch.bfloat16,
-        chunks=chunks if cfg.is_moe else None)
+        chunks=chunks if replay else None, gate=gate)
     log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
         f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
-        f"(margin {LOGIT_MARGIN})"
+        f"(margin {LOGIT_MARGIN}"
+        + ("" if gate else ", not held to it in bf16: see the f32 check")
+        + f"), {time.perf_counter() - t0:.1f} s"
         + (f"; prefill replayed in the engine's chunks {chunks}"
-           if cfg.is_moe else ""))
+           if replay else ""))
     serve_stats.update(plain_exact=exact, plain_total=total,
-                       plain_worst_gap=worst)
+                       plain_worst_gap=worst, plain_gated=gate)
+    if not gate:
+        floor = plain_noise_floor(cfg, params, eng, flows, chunks,
+                                  dtype=torch.bfloat16)
+        log(f"[check] {label}: the plain path against itself (prompt in "
+            f"the engine's chunks vs in one call) lands {floor:.4f} apart "
+            f"at its largest gap")
+        serve_stats["plain_noise_floor_gap"] = floor
     del eng
     _release()
     serve_stats["profile"] = profile_serve(cfg, params, flows)
@@ -781,11 +970,43 @@ def serve_phase():
     return serve_stats
 
 
-def moe_serve_phase():
-    """qwen2-moe-a2.7b at full width: every MoE layer's three expert
-    products through the grouped GEMM kernel."""
-    cfg, params = _init(MOE_ARCH)
-    return bf16_serve(cfg, params)
+def full_width_serve_phase(arch):
+    """``arch`` at full width, bf16: qwen2-moe-a2.7b (every MoE layer's
+    three expert products through the grouped GEMM kernel),
+    recurrentgemma-9b (RG-LRU layers through ``rglru_scan``, local attention
+    at head_dim 256) or rwkv6-1.6b (WKV6 through ``rwkv6_scan``); for the
+    families of F32_TOKEN_CHECK, the f32 serve whose tokens are held to
+    the plain path."""
+    cfg, params = _init(arch)
+    stats = bf16_serve(cfg, params)
+    if arch in F32_TOKEN_CHECK:
+        del params
+        _release()
+        stats["f32"] = f32_token_check(cfg)
+    return stats
+
+
+def f32_token_check(cfg):
+    """The same trace served in f32 (weights from the same seed, the
+    kernels in f32), every served token held to LOGIT_MARGIN of the plain
+    path."""
+    from repro_torch.models import init_params
+    label = f"{cfg.name} f32"
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    flows = make_flows(cfg, 6, OUT_TOKENS, np.random.default_rng(SEED))
+    eng, metrics, wall, _, launches, chunks = serve(
+        cfg, params, flows, device="cuda", dtype=torch.float32)
+    check_serve(cfg, eng, metrics, flows, launches, label)
+    t0 = time.perf_counter()
+    exact, total, worst = plain_check(cfg, params, eng, flows,
+                                      dtype=torch.float32, chunks=chunks)
+    log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
+        f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
+        f"(margin {LOGIT_MARGIN}), serve {wall:.3f} s, launches "
+        f"{launches}, check {time.perf_counter() - t0:.1f} s")
+    del eng
+    return dict(wall_s=wall, launches=launches, plain_exact=exact,
+                plain_total=total, plain_worst_gap=worst)
 
 
 def main():
@@ -805,22 +1026,30 @@ def main():
     phase_done("kernels")
     serve_stats = serve_phase()
     phase_done(ARCH)
-    _release()  # the llama weights and pools, before the MoE weights
-    moe_stats = moe_serve_phase()
-    phase_done(MOE_ARCH)
+    other = {}
+    for arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):
+        _release()  # the previous path's weights and pools
+        other[arch] = full_width_serve_phase(arch)
+        phase_done(arch)
     # launches of each kernel in the main-path runs, each counted from 0
     by_path = {f"{ARCH} bf16": serve_stats["launches"],
                f"{ARCH} int8": serve_stats["int8"]["launches"],
-               f"{MOE_ARCH} bf16": moe_stats["launches"]}
+               **{f"{a} bf16": st["launches"] for a, st in other.items()},
+               **{f"{a} f32": st["f32"]["launches"]
+                  for a, st in other.items() if "f32" in st}}
     replaces = {"decode_attention":
                 "src/repro/kernels/decode_attention.py:79",
                 "flash_attention_pool":
                 "src/repro/kernels/flash_attention.py:174",
-                "moe_gemm": "src/repro/kernels/moe_gemm.py:39"}
+                "moe_gemm": "src/repro/kernels/moe_gemm.py:39",
+                "rglru_scan": "src/repro/kernels/rglru_scan.py:56",
+                "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:71"}
     sources = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in replaces}
     headline = {"decode_attention": "bf16 kvl=2048",
                 "flash_attention_pool": "bf16 C=512",
-                "moe_gemm": "decode C=16 d=2048 f=1408"}
+                "moe_gemm": "decode C=16 d=2048 f=1408",
+                "rglru_scan": "prefill B=1 S=512 W=4096",
+                "rwkv6_scan": "prefill BH=32 S=512 D=64"}
     kernels = []
     for k in replaces:
         row = kernel_rows[(k, headline[k])]
@@ -830,7 +1059,10 @@ def main():
             launches=sum(n[k] for n in by_path.values()),
             launches_by_path={p: n[k] for p, n in by_path.items()}, **row))
     log(json.dumps({"serve": serve_stats}))
-    log(json.dumps({"serve_moe": moe_stats}))
+    for arch, st in other.items():
+        log(json.dumps({f"serve {arch}": st}))
+    log(json.dumps({"kernel_cases": [
+        dict(name=k, shape=n, **row) for (k, n), row in kernel_rows.items()]}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -378,9 +378,10 @@ class TorchRealBackend(ExecutionBackend):
                                           kv_dtype=self._kv_dtype_arg,
                                           device="meta"))
         self._kv_token_bytes = _bytes(1) - _bytes(0)
+        pool = self._pool
         self.quant_scale_bytes = sum(
             st[n].numel() * st[n].element_size()
-            for st in self._pool["blocks"].values()
+            for st in (*pool["head"], *pool["blocks"].values(), *pool["tail"])
             for n in ("k_scale", "v_scale") if n in st)
         # device-resident batch state (DESIGN.md §6): last token per slot and
         # the current iteration's membership mask

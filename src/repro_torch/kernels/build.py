@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("decode_attention", "flash_attention_pool", "moe_gemm")
+KERNELS = ("decode_attention", "flash_attention_pool", "moe_gemm",
+           "rglru_scan", "rwkv6_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,6 +53,20 @@ ARGTYPES = {
         [_I] * 5
         + [_P, _L, _L] * 3          # x, w, out
         + [_I, _I]                  # x_vec, w_vec
+        + [_P],                     # stream
+    "rglru_scan_launch":
+        [_I] * 4
+        + [_P, _L, _L] * 3          # x, a_log, gate
+        + [_P, _L]                  # h0
+        + [_P, _P]                  # out, h_final
+        + [_P],                     # stream
+    "rwkv6_scan_launch":
+        [_I] * 5
+        + [_P, _L, _L, _L] * 4      # r, k, v, w_log
+        + [_P, _L, _L]              # u
+        + [_P, _L, _L, _L]          # state0
+        + [_P, _L, _L, _L]          # out
+        + [_P]                      # state out
         + [_P],                     # stream
 }
 

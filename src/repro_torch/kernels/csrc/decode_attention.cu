@@ -50,16 +50,19 @@ struct DecodeArgs {
 
 // Block (HD threads) = one (kv head, row).  Thread t owns output column t
 // of every query head in the group.  A tile holds 64 / sizeof(KV) ring
-// slots (32 of bf16, 64 of int8, 16 of f32: 8 KB of K and 8 KB of V at
-// hd = 128), so each thread moves four 16-byte vectors of each per tile.
+// slots up to hd 128 (32 of bf16, 64 of int8, 16 of f32: 8 KB of K and 8 KB
+// of V at hd = 128), so each thread moves four 16-byte vectors of each per
+// tile; at hd 256 it holds half as many slots (the same 8 KB, two vectors a
+// thread), which keeps the 16 query heads' f32 rows (16 KB) and the tile
+// within the 48 KB of static shared memory.
 template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(HD) decode_kernel(DecodeArgs a) {
   constexpr int kWarps = HD / 32;
   constexpr int kPer = HD / 32;                  // K-row elements a lane scores
   constexpr int kVec = 16 / sizeof(KV);          // elements per 16-byte vector
-  constexpr int kTile = 64 / sizeof(KV);         // ring slots per tile
+  constexpr int kTile = (HD >= 256 ? 32 : 64) / sizeof(KV);  // slots a tile
   constexpr int kRowVecs = HD / kVec;            // vectors per K/V row
-  constexpr int kLoads = kTile * kRowVecs / HD;   // vectors per thread (4)
+  constexpr int kLoads = kTile * kRowVecs / HD;  // vectors per thread (4, 2)
   constexpr int kSlots = (kTile + HD - 1) / HD;  // slot scalars per thread
   static_assert(kTile <= 64, "softmax covers two slots a lane");
   const int h = blockIdx.x, b = blockIdx.y;
@@ -211,6 +214,7 @@ void launch_hd(int hd, dim3 grid, cudaStream_t st, const DecodeArgs& a) {
     case 32: decode_kernel<T, KV, 32><<<grid, 32, 0, st>>>(a); break;
     case 64: decode_kernel<T, KV, 64><<<grid, 64, 0, st>>>(a); break;
     case 128: decode_kernel<T, KV, 128><<<grid, 128, 0, st>>>(a); break;
+    case 256: decode_kernel<T, KV, 256><<<grid, 256, 0, st>>>(a); break;
   }
 }
 
@@ -229,7 +233,8 @@ extern "C" int decode_attention_launch(
     long long vs_sb, long long vs_ss, long long vs_sh, const void* sp,
     long long sp_sb, long long sp_ss, const void* cur, long long cur_sb,
     void* out, long long o_sb, long long o_sh, void* stream) {
-  if ((hd != 32 && hd != 64 && hd != 128) || G < 1 || G > kGMax || S < 1)
+  if ((hd != 32 && hd != 64 && hd != 128 && hd != 256) || G < 1 ||
+      G > kGMax || S < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   DecodeArgs a{q,  q_sb,  q_sh,  k,     k_sb,  k_ss,  k_sh,
                v,  v_sb,  v_ss,  v_sh,  static_cast<const float*>(ks),

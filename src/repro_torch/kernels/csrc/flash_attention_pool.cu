@@ -20,7 +20,9 @@
 // memory, carrying the online-softmax state, so device-memory traffic is
 // O(ring) per query tile, and each thread register-blocks its scores over
 // several query rows so a K element read from shared memory feeds several
-// FMAs.  Left for later work: wgmma/mma.sync tensor-core tiles, TMA
+// FMAs.  The tiles live in dynamic shared memory: at hd 256 (recurrentgemma's
+// local attention) they take 84 KB, past the 48 KB a block may declare
+// statically.  Left for later work: wgmma/mma.sync tensor-core tiles, TMA
 // pipelining, and sharing one K/V tile among the G query heads of a group.
 #include "common.cuh"
 
@@ -50,6 +52,18 @@ struct PoolArgs {
   float scale;
 };
 
+// A block's shared memory, carved from the dynamic allocation.
+template <int HD>
+struct PoolSmem {
+  float q[kBQ][HD];
+  float k[kBK][HD + 1];  // +1: conflict-free column reads
+  float v[kBK][HD];
+  float p[kBQ][kBK];
+  int pk[kBK];
+  int pq[kBQ];
+  float m[kBQ], l[kBQ], c[kBQ];
+};
+
 // Block (HD threads) = one (query tile, query head, row).  Thread t owns
 // output column t of every query in the tile.
 template <typename T, typename KV, int HD>
@@ -63,13 +77,17 @@ __global__ void __launch_bounds__(HD) flash_pool_kernel(PoolArgs a) {
   const int nq = min(kBQ, a.Sq - q0);
   const bool quant = a.ks != nullptr;
 
-  __shared__ float q_s[kBQ][HD];
-  __shared__ float k_s[kBK][HD + 1];  // +1: conflict-free column reads
-  __shared__ float v_s[kBK][HD];
-  __shared__ float p_s[kBQ][kBK];
-  __shared__ int pk_s[kBK];
-  __shared__ int pq_s[kBQ];
-  __shared__ float m_s[kBQ], l_s[kBQ], c_s[kBQ];
+  extern __shared__ __align__(16) unsigned char smem[];
+  PoolSmem<HD>& sm = *reinterpret_cast<PoolSmem<HD>*>(smem);
+  auto& q_s = sm.q;
+  auto& k_s = sm.k;
+  auto& v_s = sm.v;
+  auto& p_s = sm.p;
+  auto& pk_s = sm.pk;
+  auto& pq_s = sm.pq;
+  auto& m_s = sm.m;
+  auto& l_s = sm.l;
+  auto& c_s = sm.c;
 
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + hq * a.q_sh;
   for (int r = 0; r < kBQ; ++r)
@@ -154,12 +172,29 @@ __global__ void __launch_bounds__(HD) flash_pool_kernel(PoolArgs a) {
         rt::from_f<T>(acc[r] / fmaxf(l_s[r], 1e-30f));
 }
 
+template <typename T, typename KV, int HD>
+cudaError_t launch(dim3 grid, cudaStream_t st, const PoolArgs& a) {
+  constexpr int kSmem = sizeof(PoolSmem<HD>);
+  // raising the dynamic limit is needed once per kernel, past 48 KB only
+  static const cudaError_t attr =
+      kSmem <= 48 * 1024
+          ? cudaSuccess
+          : cudaFuncSetAttribute(flash_pool_kernel<T, KV, HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem);
+  if (attr != cudaSuccess) return attr;
+  flash_pool_kernel<T, KV, HD><<<grid, HD, kSmem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, typename KV>
-void launch_hd(int hd, dim3 grid, cudaStream_t st, const PoolArgs& a) {
+cudaError_t launch_hd(int hd, dim3 grid, cudaStream_t st,
+                      const PoolArgs& a) {
   switch (hd) {
-    case 32: flash_pool_kernel<T, KV, 32><<<grid, 32, 0, st>>>(a); break;
-    case 64: flash_pool_kernel<T, KV, 64><<<grid, 64, 0, st>>>(a); break;
-    case 128: flash_pool_kernel<T, KV, 128><<<grid, 128, 0, st>>>(a); break;
+    case 32: return launch<T, KV, 32>(grid, st, a);
+    case 64: return launch<T, KV, 64>(grid, st, a);
+    case 128: return launch<T, KV, 128>(grid, st, a);
+    default: return launch<T, KV, 256>(grid, st, a);
   }
 }
 
@@ -169,7 +204,8 @@ void launch_hd(int hd, dim3 grid, cudaStream_t st, const PoolArgs& a) {
 // Layouts: q/out (B, Hq, Sq, hd); K/V (B, Hkv, S, hd); scales (B, Hkv, S);
 // pos_q (B, Sq); pos_kv (B, S).  Strides are in elements; the head_dim
 // stride of q, K, V and out is 1.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// launch, or the error of raising the kernel's shared-memory limit (0 =
+// launched).
 extern "C" int flash_attention_pool_launch(
     int dtype, int kv_int8, int hd, int B, int Hq, int Sq, int S, int G,
     int window, float scale, const void* q, long long q_sb, long long q_sh,
@@ -180,7 +216,8 @@ extern "C" int flash_attention_pool_launch(
     long long vs_ss, const void* pq, long long pq_sb, long long pq_ss,
     const void* pk, long long pk_sb, long long pk_ss, void* out,
     long long o_sb, long long o_sh, long long o_ss, void* stream) {
-  if ((hd != 32 && hd != 64 && hd != 128) || G < 1 || S < 1 || Sq < 1)
+  if ((hd != 32 && hd != 64 && hd != 128 && hd != 256) || G < 1 || S < 1 ||
+      Sq < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   PoolArgs a{q,  q_sb,  q_sh,  q_ss,  k,     k_sb,  k_sh,  k_ss,
              v,  v_sb,  v_sh,  v_ss,  static_cast<const float*>(ks),
@@ -190,12 +227,13 @@ extern "C" int flash_attention_pool_launch(
              out, o_sb, o_sh, o_ss, Sq, S, G, window, scale};
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    if (kv_int8) launch_hd<float, int8_t>(hd, grid, st, a);
-    else launch_hd<float, float>(hd, grid, st, a);
+    err = kv_int8 ? launch_hd<float, int8_t>(hd, grid, st, a)
+                  : launch_hd<float, float>(hd, grid, st, a);
   } else {
-    if (kv_int8) launch_hd<__nv_bfloat16, int8_t>(hd, grid, st, a);
-    else launch_hd<__nv_bfloat16, __nv_bfloat16>(hd, grid, st, a);
+    err = kv_int8 ? launch_hd<__nv_bfloat16, int8_t>(hd, grid, st, a)
+                  : launch_hd<__nv_bfloat16, __nv_bfloat16>(hd, grid, st, a);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

@@ -1,13 +1,14 @@
-"""Wrappers of the CUDA kernels: the two attention kernels and the grouped
-expert GEMM of the MoE FFN.
+"""Wrappers of the CUDA kernels: the two attention kernels, the grouped
+expert GEMM of the MoE FFN, and the RG-LRU and WKV6 recurrences.
 
 A CPU tensor goes to the kernel's plain version in ``ref``; a CUDA tensor
 goes to the kernel or raises — there is no fallback.  Each wrapper checks
 device, dtype, shapes and the innermost stride, allocates the output,
 launches on PyTorch's current stream and raises if the launch was refused.
 Other strides are passed through, so pool row views, ring prefixes,
-(B, C, H, hd) -> (B, H, C, hd) transposes and the MoE dispatch buffer's
-capacity slice need no copy.
+(B, C, H, hd) -> (B, H, C, hd) transposes, the MoE dispatch buffer's
+capacity slice and the WKV6 (B, S, H, D) -> (B, H, S, D) head split need no
+copy.
 
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, incremented
 only where a kernel is launched), so a run can show that its main path went
@@ -19,8 +20,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0, "moe_gemm": 0}
-HEAD_DIMS = (32, 64, 128)
+LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0, "moe_gemm": 0,
+            "rglru_scan": 0, "rwkv6_scan": 0}
+HEAD_DIMS = (32, 64, 128, 256)
+RWKV6_HEAD_DIMS = (32, 64)  # WKV6 head sizes the scan kernel takes
 DECODE_MAX_GROUP = 16  # query heads per kv head the decode kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -33,6 +36,13 @@ def reset_launches() -> None:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _launched(name: str, rc: int) -> None:
+    """Raise if the C entry point reports a refused launch; else count it."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
 
 
 def _check_common(name, q, k, v, k_scale, v_scale, ints, hd, Hq, Hkv):
@@ -118,9 +128,7 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
         cur_pos.data_ptr(), cur_pos.stride(0),
         out.data_ptr(), out.stride(0), out.stride(1),
         torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    _launched(name, rc)
     return out
 
 
@@ -162,9 +170,7 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
         pos_kv.data_ptr(), *pos_kv.stride(),
         out.data_ptr(), *out.stride()[:3],
         torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    _launched(name, rc)
     return out
 
 
@@ -209,7 +215,115 @@ def moe_gemm(x, w):
         out.data_ptr(), out.stride(0), out.stride(1),
         _aligned16(x), _aligned16(w),
         torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    _launched(name, rc)
     return out
+
+
+def rglru_scan(x, a_log, gate, h0):
+    """RG-LRU recurrence ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (gate_t
+    x_t)``, ``a = exp(a_log)``, from ``h0``: x and gate (B, S, W) float32 or
+    bfloat16 (one dtype), a_log (B, S, W) and h0 (B, W) float32.  The W axis
+    has stride 1, the others any stride.  Returns (h (B, S, W) in x.dtype,
+    h_final (B, W) float32)."""
+    if x.device.type == "cpu":
+        return ref.rglru_scan(x, a_log, gate, h0)
+    name = "rglru_scan"
+    _require(x.device.type == "cuda", f"{name}: no kernel for {x.device}")
+    _require(all(t.device == x.device for t in (a_log, gate, h0)),
+             f"{name}: every tensor must be on {x.device}")
+    _require(x.dtype in _DTYPE_CODE and gate.dtype == x.dtype,
+             f"{name}: x and gate must both be float32 or bfloat16, got "
+             f"{x.dtype}/{gate.dtype}")
+    _require(a_log.dtype == torch.float32 and h0.dtype == torch.float32,
+             f"{name}: a_log and h0 must be float32, got "
+             f"{a_log.dtype}/{h0.dtype}")
+    _require(x.ndim == 3 and a_log.shape == x.shape == gate.shape
+             and h0.shape == (x.shape[0], x.shape[2]),
+             f"{name}: shapes x {tuple(x.shape)}, a_log "
+             f"{tuple(a_log.shape)}, gate {tuple(gate.shape)}, h0 "
+             f"{tuple(h0.shape)} are not (B, S, W) x3 and (B, W)")
+    B, S, W = x.shape
+    _require(min(B, S, W) >= 1 and B <= 65535,
+             f"{name}: empty or too many rows: {tuple(x.shape)}")
+    _require(all(t.stride(-1) == 1 for t in (x, a_log, gate, h0)),
+             f"{name}: the W axis must have stride 1")
+    out = torch.empty((B, S, W), dtype=x.dtype, device=x.device)
+    h_fin = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    lib = build.load(name)
+    rc = lib.rglru_scan_launch(
+        _DTYPE_CODE[x.dtype], B, S, W,
+        x.data_ptr(), x.stride(0), x.stride(1),
+        a_log.data_ptr(), a_log.stride(0), a_log.stride(1),
+        gate.data_ptr(), gate.stride(0), gate.stride(1),
+        h0.data_ptr(), h0.stride(0),
+        out.data_ptr(), h_fin.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _launched(name, rc)
+    return out, h_fin
+
+
+def rwkv6_scan(r, k, v, w_log, u, state0=None):
+    """WKV6 from ``state0`` (zeros when None, which is the Pallas
+    ``rwkv6_scan``; a state is what ``rwkv6_apply`` folds in):
+    ``o_t = r_t (S + diag(u) k_t^T v_t)``, ``S <- diag(e^{w_t}) S + k_t^T
+    v_t``.  r/k/v (..., S, D) float32 or bfloat16 (one dtype) with one or
+    two leading axes ((BH,) or (B, H)); w_log the same shape, float32; u
+    (..., 1, D) broadcast over the leading axes; state0 (..., D, D) float32.
+    The D axis has stride 1, the others any stride.  Returns (out (..., S,
+    D) in r.dtype, final state (..., D, D) float32)."""
+    if r.device.type == "cpu":
+        return ref.rwkv6_scan(r, k, v, w_log, u, state0)
+    name = "rwkv6_scan"
+    _require(r.device.type == "cuda", f"{name}: no kernel for {r.device}")
+    tensors = [k, v, w_log, u] + ([] if state0 is None else [state0])
+    _require(all(t.device == r.device for t in tensors),
+             f"{name}: every tensor must be on {r.device}")
+    _require(r.dtype in _DTYPE_CODE and k.dtype == r.dtype == v.dtype,
+             f"{name}: r, k and v must all be float32 or bfloat16, got "
+             f"{r.dtype}/{k.dtype}/{v.dtype}")
+    _require(w_log.dtype == torch.float32
+             and (state0 is None or state0.dtype == torch.float32),
+             f"{name}: w_log and state0 must be float32")
+    _require(r.ndim in (3, 4) and k.shape == r.shape == v.shape
+             == w_log.shape,
+             f"{name}: r/k/v/w_log {tuple(r.shape)}/{tuple(k.shape)}/"
+             f"{tuple(v.shape)}/{tuple(w_log.shape)} are not one "
+             "(BH, S, D) or (B, H, S, D) shape")
+    squeeze = r.ndim == 3
+    if squeeze:
+        r, k, v, w_log = (t.unsqueeze(0) for t in (r, k, v, w_log))
+        u = u.unsqueeze(0) if u.ndim == 3 else u
+        state0 = None if state0 is None else state0.unsqueeze(0)
+    B, H, S, D = r.shape
+    _require(D in RWKV6_HEAD_DIMS,
+             f"{name}: head size {D} not in {RWKV6_HEAD_DIMS}")
+    _require(S >= 1 and B <= 65535 and H <= 65535,
+             f"{name}: empty or too many rows: {tuple(r.shape)}")
+    uu = u.float().expand(B, H, 1, D)[:, :, 0]  # strides 0 where broadcast
+    if state0 is not None:
+        _require(state0.shape == (B, H, D, D),
+                 f"{name}: state0 {tuple(state0.shape)} is not "
+                 f"{(B, H, D, D)}")
+    _require(all(t.stride(-1) == 1 for t in (r, k, v, w_log, uu)
+                 + (() if state0 is None else (state0,))),
+             f"{name}: the D axis must have stride 1")
+    out = torch.empty_like(r)  # the layout of r: free to reshape back
+    s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    s0 = (None, 0, 0, 0) if state0 is None else (
+        state0.data_ptr(), *state0.stride()[:3])
+    lib = build.load(name)
+    rc = lib.rwkv6_scan_launch(
+        _DTYPE_CODE[r.dtype], D, B, H, S,
+        r.data_ptr(), *r.stride()[:3],
+        k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3],
+        w_log.data_ptr(), *w_log.stride()[:3],
+        uu.data_ptr(), uu.stride(0), uu.stride(1),
+        *s0,
+        out.data_ptr(), *out.stride()[:3],
+        s_out.data_ptr(),
+        torch.cuda.current_stream(r.device).cuda_stream)
+    _launched(name, rc)
+    if squeeze:
+        return out[0], s_out[0]
+    return out, s_out

@@ -3,13 +3,15 @@ card, and what the wrappers in ``ops`` run for CPU tensors).
 
 Same arguments, layouts and mask semantics as the Pallas kernels
 ``repro.kernels.decode_attention.decode_attention``,
-``repro.kernels.flash_attention.flash_attention_pool`` and
-``repro.kernels.moe_gemm.moe_gemm``: for attention, int8 K/V with f32
-scales, a static ``kv_limit`` on the ring extent, and a sliding window.
-Deliberately naive: direct softmax in f32 over the whole (limited) ring.
-Masked scores are -1e30, not -inf, as in the kernels, so a row with no valid
-slot yields the (finite) mean of V, exactly like the kernels' online
-softmax.
+``repro.kernels.flash_attention.flash_attention_pool``,
+``repro.kernels.moe_gemm.moe_gemm``, ``repro.kernels.rglru_scan.rglru_scan``
+and ``repro.kernels.rwkv6_scan.rwkv6_scan`` (with ``ops.rwkv6_apply``'s
+initial state): for attention, int8 K/V with f32 scales, a static
+``kv_limit`` on the ring extent, and a sliding window.  Deliberately naive:
+direct softmax in f32 over the whole (limited) ring, and the recurrences one
+timestep at a time (``repro.kernels.ref``'s oracles).  Masked scores are
+-1e30, not -inf, as in the kernels, so a row with no valid slot yields the
+(finite) mean of V, exactly like the kernels' online softmax.
 """
 from __future__ import annotations
 
@@ -82,3 +84,40 @@ def moe_gemm(x, w):
     """Grouped expert GEMM: x (E, C, d) @ w (E, d, f) -> (E, C, f), f32
     accumulation, output in x.dtype (``repro.kernels.ref.moe_gemm_ref``)."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def rglru_scan(x, a_log, gate, h0):
+    """Per-timestep RG-LRU (``repro.kernels.ref.rglru_scan_ref``):
+    ``h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (gate_t x_t)``, ``a = exp(a_log)``.
+    x/gate: (B, S, W); a_log: (B, S, W) f32; h0: (B, W) f32.  Returns
+    (h (B, S, W) in x.dtype, h_final (B, W) f32)."""
+    a = torch.exp(a_log.float())
+    b = torch.sqrt(torch.clamp_min(1.0 - a * a, 0.0)) * (gate.float()
+                                                         * x.float())
+    h = h0.float()
+    hs = []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(x.dtype), h
+
+
+def rwkv6_scan(r, k, v, w_log, u, state0=None):
+    """Per-timestep WKV6 (``repro.kernels.ref.rwkv6_scan_ref``, from
+    ``state0`` as ``repro.kernels.ops.rwkv6_apply`` folds it in):
+    ``o_t = r_t (S + diag(u) k_t^T v_t)``, ``S <- diag(e^{w_t}) S + k_t^T
+    v_t``.  r/k/v/w_log: (..., S, D); u: (..., 1, D), broadcast over the
+    leading axes; state0: (..., D, D) f32 or None (zeros).  Returns (out
+    (..., S, D) in r.dtype, final state (..., D, D) f32)."""
+    lead, (S, D) = r.shape[:-2], r.shape[-2:]
+    rf, kf, vf, wf = r.float(), k.float(), v.float(), w_log.float()
+    uf = u.float().expand(lead + (1, D))[..., 0, :]
+    st = torch.zeros(lead + (D, D), dtype=torch.float32, device=r.device) \
+        if state0 is None else state0.float()
+    outs = []
+    for t in range(S):
+        kv = kf[..., t, :, None] * vf[..., t, None, :]
+        outs.append(torch.einsum("...d,...de->...e", rf[..., t, :],
+                                 st + uf[..., :, None] * kv))
+        st = st * torch.exp(wf[..., t, :])[..., None] + kv
+    return torch.stack(outs, dim=-2).to(r.dtype), st

@@ -1,18 +1,21 @@
-"""Per-layer decode/prefill state (KV ring caches) and slot-pool helpers.
+"""Per-layer decode/prefill state (KV rings, recurrent states) and slot-pool
+helpers.
 
-PyTorch port of the attention part of ``repro.models.kvcache``.  The cache
-is the same nested dict as the reference's::
+PyTorch port of ``repro.models.kvcache`` for the attention, RG-LRU and
+RWKV6 layer kinds.  The cache is the same nested dict as the reference's::
 
     cache = {
       "pos":   (B,) int32     next absolute position to write,
-      "head":  ()             unrolled leading layers (none: attention trunk),
-      "blocks": {pos_idx: {"k", "v", "slot_pos"[, "k_scale", "v_scale"]}}
-                              stacked over a leading repeats axis,
-      "tail":  ()             unrolled trailing layers (none: attention trunk),
+      "head":  (state_0, ...) unrolled leading layers (batch on axis 0),
+      "blocks": {pos_idx: state}   stacked over a leading repeats axis
+                              (batch on axis 1),
+      "tail":  (state_0, ...) unrolled trailing layers (batch on axis 0),
     }
 
 Attention state is a ring buffer of ``alloc`` slots; ``slot_pos`` stores each
-slot's absolute position (-1 = empty).  ``blocks`` keeps batch on axis 1.
+slot's absolute position (-1 = empty).  Recurrent state (RG-LRU ``h`` and
+``conv``, RWKV6 ``wkv``, ``shift_tm`` and ``shift_cm``) has no ring axis: the
+helpers move it whole, row by row, and ``reset_row`` zeroes it.
 
 Where the reference gathers a row (``read_row``), a row prefix
 (``slice_rows``) or a ring prefix (``truncate_rings``) and later scatters it
@@ -63,10 +66,26 @@ def attn_alloc_len(cfg, max_len: int, window: Optional[int]) -> int:
 def init_layer_state(cfg, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, window: Optional[int] = None,
                      kv_dtype: Optional[str] = None, device=None) -> dict:
+    """Fresh state of one layer of ``kind``.  ``kv_dtype="int8"``
+    quantizes only attention rings; recurrent states keep f32 (``h``,
+    ``wkv``) and ``dtype`` (``conv``, shifts) as in the reference."""
+    if kind == "rglru":
+        W = cfg.lru_width
+        return {"h": torch.zeros((batch, W), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((batch, cfg.conv1d_width - 1, W),
+                                    dtype=dtype, device=device)}
+    if kind == "rwkv6":
+        D = cfg.ssm_head_dim
+        H = cfg.d_model // D
+        return {"wkv": torch.zeros((batch, H, D, D), dtype=torch.float32,
+                                   device=device),
+                "shift_tm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                        device=device),
+                "shift_cm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                        device=device)}
     if kind != "attn":
-        raise NotImplementedError(
-            f"{kind!r} layer state is not ported yet (ROADMAP.md queue 1, "
-            "item 8: other decoder families)")
+        raise ValueError(kind)
     if cfg.use_mla:
         raise NotImplementedError(
             "MLA caches are not ported yet (ROADMAP.md queue 1, item 8)")
@@ -107,15 +126,40 @@ def cache_bytes(cache) -> int:
 
 # ============================ slot-pool helpers =============================
 # A *slot pool* is an ordinary cache whose batch dimension is a pool of
-# independent decode slots (DESIGN.md §3).  The batch axis is 0 for "pos"
-# and 1 for the stacked "blocks" leaves.
+# independent decode slots (DESIGN.md §3).  The batch axis is 0 for "pos",
+# "head" and "tail" and 1 for the stacked "blocks" leaves; a ring leaf's
+# alloc axis follows its batch axis.
 
-def _map_blocks(fn, *caches):
-    """Apply ``fn(name, *leaves)`` to every ``blocks`` leaf of one or more
-    structurally equal caches; returns the new ``blocks`` dict."""
-    return {pi: {name: fn(name, *[c["blocks"][pi][name] for c in caches])
-                 for name in caches[0]["blocks"][pi]}
-            for pi in caches[0]["blocks"]}
+def _states(cache):
+    """(section, key, batch axis) of every layer state of ``cache``."""
+    for i in range(len(cache["head"])):
+        yield "head", i, 0
+    for pi in cache["blocks"]:
+        yield "blocks", pi, 1
+    for i in range(len(cache["tail"])):
+        yield "tail", i, 0
+
+
+def _walk(*caches):
+    """``(name, batch axis, leaves)`` of every layer-state leaf of one or
+    more structurally equal caches."""
+    for sec, key, axis in _states(caches[0]):
+        for name in caches[0][sec][key]:
+            yield name, axis, [c[sec][key][name] for c in caches]
+
+
+def _map_states(fn, *caches):
+    """A copy of ``caches[0]`` whose state leaves are ``fn(name, batch
+    axis, *leaves)`` over the matching leaves of every cache."""
+    out = dict(caches[0])
+    for sec in ("head", "tail"):
+        out[sec] = tuple({n: fn(n, 0, *[c[sec][i][n] for c in caches])
+                          for n in st}
+                         for i, st in enumerate(caches[0][sec]))
+    out["blocks"] = {pi: {n: fn(n, 1, *[c["blocks"][pi][n] for c in caches])
+                          for n in st}
+                     for pi, st in caches[0]["blocks"].items()}
+    return out
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -130,71 +174,73 @@ def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(src)
 
 
+def _is_full_ring(name, x, axis, full) -> bool:
+    """A ring leaf whose alloc equals ``full``: no window shrank it."""
+    return name in _RING_PAYLOAD and x.shape[axis + 1] == full
+
+
 def read_row(pool, slot: int):
     """Batch-1 row view of pool row ``slot`` (a host int): every leaf is a
     view, so the model's in-place writes land in the pool row directly."""
-    out = dict(pool)
+    out = _map_states(lambda n, a, x: x.narrow(a, slot, 1), pool)
     out["pos"] = pool["pos"][slot:slot + 1]
-    out["blocks"] = _map_blocks(lambda n, x: x[:, slot:slot + 1], pool)
     return out
 
 
 def write_row_slice(pool, one, slot: int, start: int, c: int):
     """Write the ``c`` ring positions ``[start, start+c)`` (mod alloc,
     tail-clipped like the extend write) of batch-1 cache ``one`` into pool
-    row ``slot``, plus ``pos``.  A :func:`read_row` view already lives in
-    the row, so nothing moves."""
+    row ``slot``, plus ``pos`` and the recurrent state.  A :func:`read_row`
+    view already lives in the row, so nothing moves."""
     _put(pool["pos"][slot:slot + 1], one["pos"])
-    for pi, st in pool["blocks"].items():
-        for name, p in st.items():
-            o = one["blocks"][pi][name]
-            dst = p[:, slot:slot + 1]
-            if name in _RING_PAYLOAD:
-                alloc = dst.shape[2]
-                if dst.data_ptr() == o.data_ptr() \
-                        and dst.stride() == o.stride():
-                    continue  # a (possibly truncated) view of this row
-                n = min(c, alloc)
-                idx = (start + (c - n)
-                       + torch.arange(n, device=p.device)) % alloc
-                dst[:, :, idx] = o[:, :, idx]
-            else:
-                _put(dst, o)
+    for name, axis, (p, o) in _walk(pool, one):
+        dst = p.narrow(axis, slot, 1)
+        if name in _RING_PAYLOAD:
+            if dst.data_ptr() == o.data_ptr() and dst.stride() == o.stride():
+                continue  # a (possibly truncated) view of this row
+            alloc = dst.shape[axis + 1]
+            n = min(c, alloc)
+            idx = (start + (c - n)
+                   + torch.arange(n, device=p.device)) % alloc
+            dst.index_copy_(axis + 1, idx, o.index_select(axis + 1, idx))
+        else:
+            _put(dst, o)
     return pool
 
 
 def truncate_rings(one, kv_limit, full):
     """Static prefix view: ring leaves whose alloc equals ``full`` (the
     build-time ``max_len``; no window shrank them) are sliced to their first
-    ``kv_limit`` slots.  Windowed leaves (alloc < full) keep their ring."""
+    ``kv_limit`` slots.  Windowed leaves (alloc < full) keep their ring, and
+    recurrent leaves have none."""
     if not full or kv_limit >= full:
         return one
-    out = dict(one)
-    out["blocks"] = _map_blocks(
-        lambda n, x: x[:, :, :kv_limit]
-        if n in _RING_PAYLOAD and x.shape[2] == full else x, one)
+    out = _map_states(
+        lambda n, a, x: x.narrow(a + 1, 0, kv_limit)
+        if _is_full_ring(n, x, a, full) else x, one)
+    out["pos"] = one["pos"]
     return out
 
 
 def untruncate_rings(full_cache, view, kv_limit, full):
-    """Inverse of :func:`truncate_rings`: the advanced ``kv_limit`` prefix
-    and ``pos`` of ``view`` land in ``full_cache`` (free for a view)."""
+    """Inverse of :func:`truncate_rings`: the advanced ``kv_limit`` prefix,
+    ``pos`` and the recurrent state of ``view`` land in ``full_cache`` (free
+    for a view)."""
     if not full or kv_limit >= full:
         return view
     _put(full_cache["pos"], view["pos"])
-    for pi, st in full_cache["blocks"].items():
-        for name, p in st.items():
-            v = view["blocks"][pi][name]
-            _put(p[:, :, :v.shape[2]], v)
+    for name, axis, (p, v) in _walk(full_cache, view):
+        if _is_full_ring(name, p, axis, full):
+            p = p.narrow(axis + 1, 0, v.shape[axis + 1])
+        _put(p, v)
     return full_cache
 
 
 def slice_rows(pool, rows: int):
     """Leading-rows view of a pool cache (live-row sub-pool decode,
     DESIGN.md §9): batch rows ``[0, rows)`` of every leaf."""
-    out = dict(pool)
+    out = _map_states(lambda n, a, x: x.narrow(a, 0, rows), pool)
     out["pos"] = pool["pos"][:rows]
-    out["blocks"] = _map_blocks(lambda n, x: x[:, :rows], pool)
     return out
 
 
@@ -203,27 +249,24 @@ def write_rows_prefix(pool, sub, rows: int, kv_limit, full):
     rows, bounded to the ``kv_limit`` ring prefix (free for a view)."""
     kv = None if (not full or kv_limit >= full) else kv_limit
     _put(pool["pos"][:rows], sub["pos"])
-    for pi, st in pool["blocks"].items():
-        for name, p in st.items():
-            s = sub["blocks"][pi][name]
-            if kv is not None and name in _RING_PAYLOAD \
-                    and p.shape[2] == full:
-                _put(p[:, :rows, :kv], s[:, :, :kv])
-            else:
-                _put(p[:, :rows], s)
+    for name, axis, (p, s) in _walk(pool, sub):
+        dst = p.narrow(axis, 0, rows)
+        if kv is not None and _is_full_ring(name, p, axis, full):
+            dst, s = dst.narrow(axis + 1, 0, kv), s.narrow(axis + 1, 0, kv)
+        _put(dst, s)
     return pool
 
 
 def reset_row(pool, slot: int):
     """Invalidate pool row ``slot`` for rebinding, in place: ``slot_pos``
-    becomes -1 (every mask treats it as empty) and ``pos`` 0; the K/V
+    becomes -1 (every mask treats it as empty), ``pos`` and every recurrent
+    state 0 (they accumulate, so masking cannot neutralise them); the K/V
     payload of the previous occupant is left as it is (O(alloc) not
     O(alloc * d))."""
     pool["pos"][slot] = 0
-    for st in pool["blocks"].values():
-        for name, x in st.items():
-            if name not in _ATTN_PAYLOAD:
-                x[:, slot] = -1 if name == "slot_pos" else 0
+    for name, axis, (x,) in _walk(pool):
+        if name not in _ATTN_PAYLOAD:
+            x.narrow(axis, slot, 1).fill_(-1 if name == "slot_pos" else 0)
     return pool
 
 
@@ -231,9 +274,8 @@ def copy_into_prefix(new, old, p: int):
     """Copy the ``p`` rows of pool ``old`` into the first ``p`` rows of the
     larger, freshly initialised pool ``new`` (pool doubling)."""
     new["pos"][:p].copy_(old["pos"])
-    for pi, st in new["blocks"].items():
-        for name, x in st.items():
-            x[:, :p].copy_(old["blocks"][pi][name])
+    for _, axis, (x, o) in _walk(new, old):
+        x.narrow(axis, 0, p).copy_(o)
     return new
 
 
@@ -241,13 +283,11 @@ def select_rows(mask: torch.Tensor, new, old):
     """Functional masked update: row ``b`` of the result is ``new``'s where
     ``mask[b]`` else ``old``'s.  The reference applies this after every
     masked decode step; the port writes only the active rows in place
-    instead (``transformer._attn_mix_extend``), and the tests hold the two
-    equal."""
-    out = dict(new)
-    out["pos"] = torch.where(mask, new["pos"], old["pos"])
-
-    def sel(name, n, o):
-        m = mask.reshape((1, -1) + (1,) * (n.ndim - 2))
+    instead (``transformer._attn_mix_extend``, ``ssm.store_rows``), and the
+    tests hold the two equal."""
+    def sel(name, axis, n, o):
+        m = mask.reshape((1,) * axis + (-1,) + (1,) * (n.ndim - axis - 1))
         return torch.where(m, n, o)
-    out["blocks"] = _map_blocks(sel, new, old)
+    out = _map_states(sel, new, old)
+    out["pos"] = torch.where(mask, new["pos"], old["pos"])
     return out

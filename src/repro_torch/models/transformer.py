@@ -1,9 +1,12 @@
-"""Attention-family decoder: init, prefill/extend, masked slot-pool decode.
+"""Decoder trunk: init, prefill/extend, masked slot-pool decode.
 
-PyTorch port of the serving half of ``repro.models.transformer`` for GQA
-decoders with a dense or MoE FFN (the llama and qwen2-moe families).  One
-code path (``extend``) covers chunked prefill (C tokens against an existing
-cache) and decode (C == 1).
+PyTorch port of the serving half of ``repro.models.transformer`` for the
+attention family (GQA decoders with a dense or MoE FFN: llama, qwen2-moe),
+the hybrid RG-LRU + local attention family (recurrentgemma) and the
+attention-free RWKV6 family.  One code path (``extend``) covers chunked
+prefill (C tokens against an existing cache) and decode (C == 1).  Layers
+run in the reference's order: the unrolled ``head``, the repeated
+``blocks`` pattern, then the unrolled ``tail``.
 
 Differences from the reference, all forced by the frameworks:
 
@@ -13,16 +16,18 @@ Differences from the reference, all forced by the frameworks:
 * ``jax.lax.scan`` over the stacked ``blocks`` becomes a Python loop over
   repeats, and the scan of ``decode_run`` a loop that keeps tokens on the
   device.
-* A masked decode step writes the new K/V, ``slot_pos`` and ``pos`` only
-  into active rows, where the reference writes every row and then restores
-  the inactive ones with ``kvcache.select_rows``: an in-place write into a
+* A masked decode step writes the new K/V, ``slot_pos``, recurrent state
+  (``h``, ``conv``, ``wkv``, the token shifts) and ``pos`` only into active
+  rows, where the reference writes every row and then restores the
+  inactive ones with ``kvcache.select_rows``: an in-place write into a
   bound but inactive row (mid-prefill, or preempted) would corrupt it.
 
 ``kernel_backend`` mirrors the reference's ``"xla" | "pallas"`` knob as
-``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention and the MoE
-expert products through ``repro_torch.kernels.ops``, whose wrappers launch
-the CUDA kernels on CUDA tensors and fall to their plain versions only for
-CPU tensors; ``"plain"`` runs ``models.attention`` and ``torch.einsum``.
+``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention, the MoE
+expert products and the RG-LRU / WKV6 recurrences through
+``repro_torch.kernels.ops``, whose wrappers launch the CUDA kernels on CUDA
+tensors and fall to their plain versions only for CPU tensors; ``"plain"``
+runs ``models.attention``, ``torch.einsum`` and ``models.ssm``'s scans.
 """
 from __future__ import annotations
 
@@ -35,8 +40,11 @@ from repro_torch.models.layers import (apply_rope, embed_tokens, lm_logits,
                                        mlp, rms_norm)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import to_module
+from repro_torch.models.ssm import (rglru_block, rwkv6_block,
+                                    rwkv6_channel_mix)
 
 KERNEL_BACKENDS = ("plain", "cuda")
+LAYER_KINDS = ("attn", "rglru", "rwkv6")
 
 
 # ============================ layout helpers ================================
@@ -58,8 +66,9 @@ def layout(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port covers GQA decoders with a dense or an all-MoE FFN so far;
-    every other family raises, naming the ROADMAP.md item that ports it."""
+    """The port covers decoders built of attention (dense or all-MoE FFN),
+    RG-LRU and RWKV6 layers; every other family raises, naming the
+    ROADMAP.md item that ports it."""
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and vision forms are not ported yet "
@@ -73,9 +82,10 @@ def check_supported(cfg) -> None:
             f"{cfg.name}: dense head layers before the MoE trunk are not "
             "ported yet (ROADMAP.md queue 1, item 8)")
     head, pattern, _, tail = layout(cfg)
-    if head or tail or any(k != "attn" for k in pattern):
+    unknown = set(head + pattern + tail) - set(LAYER_KINDS)
+    if unknown:
         raise NotImplementedError(
-            f"{cfg.name}: RG-LRU / RWKV6 blocks are not ported yet "
+            f"{cfg.name}: {sorted(unknown)} layers are not ported yet "
             "(ROADMAP.md queue 1, item 8)")
 
 
@@ -87,11 +97,19 @@ def _normal(gen, shape, std, dtype, device):
 
 def _stacked(gen, R, shape, std, dtype, device):
     """A (R,) + shape leaf drawn one repeat at a time, so the f32 staging
-    buffer stays one layer's leaf."""
+    buffer stays one layer's leaf; ``R=None`` draws one unrolled layer's
+    ``shape`` leaf."""
+    if R is None:
+        return _normal(gen, shape, std, dtype, device)
     w = torch.empty((R,) + shape, dtype=dtype, device=device)
     for r in range(R):
         w[r] = _normal(gen, shape, std, dtype, device)
     return w
+
+
+def _full(R, shape, value, dtype, device):
+    return torch.full(((R,) if R is not None else ()) + shape, value,
+                      dtype=dtype, device=device)
 
 
 def _init_ffn(cfg, R, gen, dtype, device, d_ff):
@@ -122,25 +140,77 @@ def _init_moe(cfg, R, gen, dtype, device):
     return p
 
 
-def _init_layer(cfg, R, gen, dtype, device):
-    """One stacked attention block: every leaf has a leading repeats axis."""
+def _init_attn(cfg, R, gen, dtype, device):
     d = cfg.d_model
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    std = 0.02
     out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
-
-    def stacked(shape, s):
-        return _stacked(gen, R, shape, s, dtype, device)
-
-    ones = lambda: torch.ones((R, d), dtype=dtype, device=device)
-    attn = {"wq": stacked((d, Hq * hd), std),
-            "wk": stacked((d, Hkv * hd), std),
-            "wv": stacked((d, Hkv * hd), std),
-            "wo": stacked((Hq * hd, d), out_std)}
+    attn = {"wq": _stacked(gen, R, (d, Hq * hd), 0.02, dtype, device),
+            "wk": _stacked(gen, R, (d, Hkv * hd), 0.02, dtype, device),
+            "wv": _stacked(gen, R, (d, Hkv * hd), 0.02, dtype, device),
+            "wo": _stacked(gen, R, (Hq * hd, d), out_std, dtype, device)}
     if cfg.qkv_bias:
         for n, width in (("bq", Hq * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
-            attn[n] = torch.zeros((R, width), dtype=dtype, device=device)
-    p = {"norm1": {"w": ones()}, "norm2": {"w": ones()}, "attn": attn}
+            attn[n] = _full(R, (width,), 0.0, dtype, device)
+    return attn
+
+
+def _init_rwkv6(cfg, R, gen, dtype, device):
+    """Time mix with its channel mix (``cm``) inside, at
+    ``repro.models.transformer._init_rwkv6``'s scales; ``w0`` is f32."""
+    d, D, lora_r = cfg.d_model, cfg.ssm_head_dim, 64
+    out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
+
+    def nrm(shape, std=0.02):
+        return _stacked(gen, R, shape, std, dtype, device)
+
+    p = {"wr": nrm((d, d)), "wk": nrm((d, d)), "wv": nrm((d, d)),
+         "wg": nrm((d, d)), "wo": nrm((d, d), out_std),
+         # base decay ~ e^{-e^{0.5}}
+         "w0": _full(R, (d,), 0.5, torch.float32, device),
+         "w_lora_a": nrm((d, lora_r)), "w_lora_b": nrm((lora_r, d)),
+         "u": nrm((d // D, D)),
+         "ln_w": _full(R, (d,), 1.0, dtype, device),
+         "ln_b": _full(R, (d,), 0.0, dtype, device)}
+    for n in ("r", "k", "v", "g", "w"):
+        p[f"mu_{n}"] = _full(R, (d,), 0.5, dtype, device)
+    p["cm"] = {"mu": _full(R, (d,), 0.5, dtype, device),
+               "wk_cm": nrm((d, cfg.d_ff)),
+               "wv_cm": nrm((cfg.d_ff, d), out_std),
+               "wr_cm": nrm((d, d))}
+    return p
+
+
+def _init_rglru(cfg, R, gen, dtype, device):
+    """``repro.models.transformer._init_rglru``'s scales; ``lam`` is f32
+    (softplus(0.2) ~ 0.8: decay exp(-8 * 0.8 * sigmoid))."""
+    d, W, cw = cfg.d_model, cfg.lru_width, cfg.conv1d_width
+    out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
+
+    def nrm(shape, std=0.02):
+        return _stacked(gen, R, shape, std, dtype, device)
+
+    return {"w_x": nrm((d, W)), "w_gate": nrm((d, W)),
+            "conv_w": nrm((cw, W)), "conv_b": _full(R, (W,), 0.0, dtype,
+                                                    device),
+            "w_a": nrm((W, W)), "b_a": _full(R, (W,), 0.0, dtype, device),
+            "w_i": nrm((W, W)), "b_i": _full(R, (W,), 0.0, dtype, device),
+            "lam": _full(R, (W,), 0.2, torch.float32, device),
+            "w_out": nrm((W, d), out_std)}
+
+
+def _init_layer(cfg, kind, R, gen, dtype, device):
+    """One block of ``kind``: with a leading repeats axis of R (stacked
+    ``blocks``), or unrolled (``R=None``: ``head`` and ``tail``)."""
+    d = cfg.d_model
+    p = {"norm1": {"w": _full(R, (d,), 1.0, dtype, device)},
+         "norm2": {"w": _full(R, (d,), 1.0, dtype, device)}}
+    if kind == "attn":
+        p["attn"] = _init_attn(cfg, R, gen, dtype, device)
+    elif kind == "rglru":
+        p["rg"] = _init_rglru(cfg, R, gen, dtype, device)
+    else:  # rwkv6: its FFN is the channel mix inside "tm"
+        p["tm"] = _init_rwkv6(cfg, R, gen, dtype, device)
+        return p
     if cfg.is_moe:
         p["moe"] = _init_moe(cfg, R, gen, dtype, device)
     else:
@@ -165,7 +235,7 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
                            "is visible; pass device='cpu' to use the CPU")
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    _, pattern, repeats, _ = layout(cfg)
+    head, pattern, repeats, tail = layout(cfg)
     d = cfg.d_model
     tree = {"embed": {"w": _normal(gen, (cfg.vocab_size, d), 0.02, dtype,
                                    device)},
@@ -174,8 +244,16 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": _normal(gen, (d, cfg.vocab_size), 0.02,
                                         dtype, device)}
-    tree["blocks"] = {str(pi): _init_layer(cfg, repeats, gen, dtype, device)
-                      for pi in range(len(pattern))}
+    # the unrolled sections under str(i), as from_jax_params names them;
+    # an empty one adds no key
+    for sec, kinds in (("head", head), ("tail", tail)):
+        if kinds:
+            tree[sec] = {str(i): _init_layer(cfg, kind, None, gen, dtype,
+                                             device)
+                         for i, kind in enumerate(kinds)}
+    tree["blocks"] = {str(pi): _init_layer(cfg, kind, repeats, gen, dtype,
+                                           device)
+                      for pi, kind in enumerate(pattern)}
     return to_module(tree)
 
 
@@ -272,11 +350,18 @@ def _ffn_apply(cfg, lp, x, ctx):
     return y.reshape(B, C, d)
 
 
-def apply_block(cfg, lp, x, st, ctx):
-    """One residual attention block over (B, C, d); ``st`` is updated in
+def apply_block(cfg, kind, lp, x, st, ctx):
+    """One residual block of ``kind`` over (B, C, d); ``st`` is updated in
     place."""
     h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
-    x = x + _attn_mix_extend(cfg, lp["attn"], h, st, ctx)
+    if kind == "rwkv6":
+        x = x + rwkv6_block(h, lp["tm"], cfg, st, ctx)
+        h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
+        return x + rwkv6_channel_mix(h2, lp["tm"]["cm"], st, ctx)
+    if kind == "rglru":
+        x = x + rglru_block(h, lp["rg"], cfg, st, ctx)
+    else:
+        x = x + _attn_mix_extend(cfg, lp["attn"], h, st, ctx)
     h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
     return x + _ffn_apply(cfg, lp, h2, ctx)
 
@@ -289,44 +374,55 @@ def _at(tree, r):
 
 
 def layer_views(cfg, params):
-    """Per-layer parameter views in execution order: (pattern index,
-    repeat, tree of views).  Built once per call so a fused decode run
-    indexes the stacked weights once, not once per step."""
-    _, pattern, repeats, _ = layout(cfg)
-    return [(pi, r, _at(params["blocks"][str(pi)], r))
-            for r in range(repeats) for pi in range(len(pattern))]
+    """Per-layer parameter views in execution order (head, each repeat of
+    the pattern, tail): (kind, where its state lives, tree of views), the
+    state's place as (section, key, repeat or None).  Built once per call so
+    a fused decode run indexes the stacked weights once, not once per
+    step."""
+    head, pattern, repeats, tail = layout(cfg)
+    out = [(kind, ("head", i, None), params["head"][str(i)])
+           for i, kind in enumerate(head)]
+    out += [(kind, ("blocks", str(pi), r), _at(params["blocks"][str(pi)], r))
+            for r in range(repeats) for pi, kind in enumerate(pattern)]
+    out += [(kind, ("tail", i, None), params["tail"][str(i)])
+            for i, kind in enumerate(tail)]
+    return out
 
 
 def _run_trunk(cfg, layers, x, cache, ctx):
-    for pi, r, lp in layers:
-        st = _at(cache["blocks"][str(pi)], r)
-        x = apply_block(cfg, lp, x, st, ctx)
+    for kind, (sec, key, r), lp in layers:
+        st = cache[sec][key]
+        x = apply_block(cfg, kind, lp, x, st if r is None else _at(st, r),
+                        ctx)
     return x
 
 
 # ============================ public entry points ===========================
 def init_cache(cfg, params, batch, max_len, dtype=torch.bfloat16, *,
                window=None, kv_dtype=None, device=None):
-    """Fresh decode state.  ``kv_dtype="int8"`` builds a quantized ring
-    (int8 payload + f32 ``k_scale``/``v_scale``); ``None``/"bf16" keeps the
-    plain ``dtype`` ring.  ``device`` defaults to the parameters' device."""
+    """Fresh decode state: attention rings, recurrent states, and ``pos``.
+    ``kv_dtype="int8"`` builds quantized attention rings (int8 payload +
+    f32 ``k_scale``/``v_scale``); ``None``/"bf16" keeps the plain ``dtype``
+    ring.  ``device`` defaults to the parameters' device."""
     check_supported(cfg)
     if device is None:
         device = params["embed"]["w"].device
-    _, pattern, repeats, _ = layout(cfg)
+    head, pattern, repeats, tail = layout(cfg)
     kv_dtype = None if kv_dtype == "bf16" else kv_dtype
 
+    def mk(kind):
+        return kvcache.init_layer_state(cfg, kind, batch, max_len, dtype,
+                                        window=window, kv_dtype=kv_dtype,
+                                        device=device)
+
     def stacked(kind):
-        st = kvcache.init_layer_state(cfg, kind, batch, max_len, dtype,
-                                      window=window, kv_dtype=kv_dtype,
-                                      device=device)
         return {n: x[None].repeat((repeats,) + (1,) * x.ndim)
-                for n, x in st.items()}
+                for n, x in mk(kind).items()}
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "head": (),
+            "head": tuple(mk(kind) for kind in head),
             "blocks": {str(pi): stacked(kind)
                        for pi, kind in enumerate(pattern)},
-            "tail": ()}
+            "tail": tuple(mk(kind) for kind in tail)}
 
 
 def _check_backend(kernel_backend):
@@ -343,8 +439,8 @@ def _extend(cfg, params, cache, tokens, *, window=None, q_chunk=512,
     pos = cache["pos"][:, None] + torch.arange(
         C, dtype=torch.int32, device=tokens.device)[None, :]
     ctx = {"pos": pos, "window": window, "q_chunk": q_chunk,
-           "kv_chunk": kv_chunk, "kernel_backend": kernel_backend,
-           "active": active}
+           "kv_chunk": kv_chunk, "ssm_chunk": 32,
+           "kernel_backend": kernel_backend, "active": active}
     layers = layer_views(cfg, params) if layers is None else layers
     x = _run_trunk(cfg, layers, x, cache, ctx)
     if active is None:

@@ -1,6 +1,8 @@
-"""PyTorch port on the card: the CUDA kernels (attention and the MoE
-grouped expert GEMM) against their plain versions, and the tiny serving
-paths (dense and MoE) through the kernels against the plain path.  Every test here is marked ``cuda`` and skips without an NVIDIA GPU;
+"""PyTorch port on the card: the CUDA kernels (attention up to head_dim
+256, the MoE grouped expert GEMM, the RG-LRU and WKV6 scans) against their
+plain versions, and the tiny serving paths (dense, MoE, RG-LRU hybrid,
+RWKV6) through the kernels against the plain path.  Every test here is
+marked ``cuda`` and skips without an NVIDIA GPU;
 on the card run them with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the file imports no JAX).
 
@@ -14,6 +16,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import quantize_kv
 from torch_attention_cases import (DECODE_CASES, POOL_CASES, decode_case,
                                    pool_call, pool_case, to_torch)
+from torch_recurrent_cases import (RGLRU_CASES, RWKV6_CASES, TAIL,
+                                   rglru_case, rwkv6_case, tiny)
 
 pytestmark = pytest.mark.cuda
 
@@ -151,11 +155,102 @@ def test_moe_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                      torch.zeros((2, 8, 4), device=cuda))
 
 
+def _wide(x, dtype, cuda):
+    """``x`` on the card as a strided view: its last axis inside a wider
+    buffer and its leading axis every other row."""
+    t = torch.from_numpy(x).to(cuda, dtype)
+    buf = torch.zeros((2 * t.shape[0],) + t.shape[1:-1]
+                      + (t.shape[-1] + 8,), dtype=dtype, device=cuda)
+    view = buf[::2, ..., 3:3 + t.shape[-1]]
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_CASES + [(16, 1, 4096),
+                                                 (1, 300, 520)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dtype):
+    """Ragged W and S, a decode step, a nonzero h0, strided views."""
+    x, a, g, h0 = rglru_case(B, S, W)
+    tx, tg = _wide(x, dtype, cuda), _wide(g, dtype, cuda)
+    ta, th0 = _wide(a, torch.float32, cuda), _wide(h0, torch.float32, cuda)
+    assert not tx.is_contiguous()
+    before = ops.LAUNCHES["rglru_scan"]
+    h, f = ops.rglru_scan(tx, ta, tg, th0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan"] == before + 1
+    assert h.dtype == dtype and f.dtype == torch.float32
+    want_h, want_f = ref.rglru_scan(tx, ta, tg, th0)
+    _assert_close(h, want_h, dtype)
+    torch.testing.assert_close(f, want_f, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("BH,S,D", RWKV6_CASES + [(32, 300, 64),
+                                                  (512, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_scan_kernel_matches_plain(cuda, BH, S, D, dtype, with_state):
+    """D 32 and 64, ragged S, a decode step, zero or nonzero state0, on
+    strided views."""
+    r, k, v, w, u, s0 = rwkv6_case(BH, S, D)
+    tr, tk, tv = (_wide(t, dtype, cuda) for t in (r, k, v))
+    tw, tu = _wide(w, torch.float32, cuda), _wide(u, torch.float32, cuda)
+    ts0 = _wide(s0, torch.float32, cuda) if with_state else None
+    before = ops.LAUNCHES["rwkv6_scan"]
+    o, s = ops.rwkv6_scan(tr, tk, tv, tw, tu, ts0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rwkv6_scan"] == before + 1
+    want_o, want_s = ref.rwkv6_scan(tr, tk, tv, tw, tu, ts0)
+    _assert_close(o, want_o, dtype)
+    # the state is f32 on both sides; bf16 inputs enter it exactly
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel_takes_the_model_head_split(cuda, dtype):
+    """(B, S, H, D) -> (B, H, S, D) transposed views and a per-head u of
+    shape (H, 1, D), as ``ssm.rwkv6_block`` passes them."""
+    B, S, H, D = 3, 40, 4, 64
+    rng = np.random.default_rng(9)
+    r, k, v = ((torch.from_numpy(rng.standard_normal((B, S, H * D),
+                                                     dtype=np.float32))
+                .to(cuda, dtype) * 0.5).reshape(B, S, H, D).transpose(1, 2)
+               for _ in range(3))
+    w = -torch.rand((B, S, H, D), device=cuda).transpose(1, 2)
+    u = torch.randn((H, 1, D), device=cuda) * 0.3
+    s0 = torch.randn((B, H, D, D), device=cuda) * 0.3
+    o, s = ops.rwkv6_scan(r, k, v, w, u, s0)
+    want_o, want_s = ref.rwkv6_scan(r, k, v, w, u, s0)
+    _assert_close(o, want_o, dtype)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+    assert o.transpose(1, 2).is_contiguous()  # reshapes back for free
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((1, 4, 8), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ops.rglru_scan(x, x.bfloat16(), x, x[:, 0])
+    with pytest.raises(ValueError, match="stride 1"):
+        ops.rglru_scan(x.transpose(1, 2), x.transpose(1, 2),
+                       x.transpose(1, 2), x[:, :, 0])
+    r = torch.zeros((2, 4, 48), device=cuda)  # head size 48
+    with pytest.raises(ValueError, match="head size"):
+        ops.rwkv6_scan(r, r, r, r, r[:, :1])
+    r = torch.zeros((2, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="state0"):
+        ops.rwkv6_scan(r, r, r, r, r[:, :1], torch.zeros((2, 32, 16),
+                                                        device=cuda))
+
+
 # kernels each tiny serve must launch with kernel_backend="cuda"
 SERVE_KERNELS = {
     "llama3.2-3b": {"decode_attention", "flash_attention_pool"},
     "qwen2-moe-a2.7b": {"decode_attention", "flash_attention_pool",
-                        "moe_gemm"}}
+                        "moe_gemm"},
+    "recurrentgemma-9b": {"decode_attention", "flash_attention_pool",
+                          "rglru_scan"},
+    TAIL: {"decode_attention", "flash_attention_pool", "rglru_scan"},
+    "rwkv6-1.6b": {"rwkv6_scan"}}
 
 
 @pytest.mark.parametrize("arch", sorted(SERVE_KERNELS))
@@ -164,7 +259,7 @@ def test_tiny_serve_through_kernels_matches_plain_path(cuda, arch):
     from repro_torch.core import Priority, Request
     from repro_torch.core.engine import RealAgentXPUEngine
     from repro_torch.models import init_params
-    cfg = get_tiny_config(arch)
+    cfg = tiny(get_tiny_config, arch)
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
     rng = np.random.default_rng(0)
     toks = [rng.integers(0, cfg.vocab_size, (1, n)) for n in (9, 23, 14)]

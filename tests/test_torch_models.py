@@ -5,7 +5,9 @@ Weights are the reference's ``init_params`` carried across with
 reference's own (tests/test_consistency.py): 3e-3 for prefill logits and
 1e-2 for decode, in f32.  Exactness that the reference asserts within one
 framework (fused == per-step, elastic == full pool, untouched inactive rows)
-is asserted bit for bit here too."""
+is asserted bit for bit here too.  The recurrent families run with a tiny
+recurrentgemma variant that has an unrolled tail, which the reference's
+tiny config lacks (``torch_recurrent_cases.TAIL``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,12 +18,13 @@ from repro import models as J
 from repro.configs import get_tiny_config as j_tiny
 from repro_torch import models as T
 from repro_torch.configs import get_tiny_config as t_tiny
+from torch_recurrent_cases import RECURRENT_ARCHS, TAIL, tiny
 
-ARCHS = ["llama3-405b", "llama3.2-3b", "qwen2-moe-a2.7b"]
+ARCHS = ["llama3-405b", "llama3.2-3b", "qwen2-moe-a2.7b"] + RECURRENT_ARCHS
 
 
 def _weights(arch, dtype=jnp.float32):
-    jcfg, tcfg = j_tiny(arch), t_tiny(arch)
+    jcfg, tcfg = tiny(j_tiny, arch), tiny(t_tiny, arch)
     jp = J.init_params(jcfg, jax.random.PRNGKey(0), dtype)
     tp = T.module_from_state_dict(
         T.from_jax_params(jax.tree_util.tree_map(np.asarray, jp)))
@@ -39,19 +42,37 @@ def _close(got, want, tol):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-moe-a2.7b"])
+# a stacked leaf of each arch's first block and a leaf of its tail
+_FIRST = {"llama3.2-3b": ("blocks.0.attn.wq", None),
+          "qwen2-moe-a2.7b": ("blocks.0.attn.wq", None),
+          "rwkv6-1.6b": ("blocks.0.tm.wr", None),
+          "recurrentgemma-9b": ("blocks.0.rg.w_x", None),
+          TAIL: ("blocks.0.rg.w_x", "tail.1.rg.w_x")}
+
+
+@pytest.mark.parametrize("arch", sorted(_FIRST))
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_from_jax_params_round_trips(dtype, arch):
     """Every leaf bit for bit, under the reference's tree paths; the MoE
-    tree keeps its f32 router beside bf16 experts."""
-    jcfg, jp, _, tp = _weights(arch, dtype)
+    tree keeps its f32 router beside bf16 experts, RG-LRU its f32 ``lam``
+    and RWKV6 its f32 ``w0``; tail layers land under ``tail.<i>``."""
+    jcfg, jp, tcfg, tp = _weights(arch, dtype)
     sd = tp.state_dict()
     flat = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
                      for k in path): np.asarray(leaf)
             for path, leaf in jax.tree_util.tree_leaves_with_path(jp)}
     assert set(sd) == set(flat)
-    assert "blocks.0.attn.wq" in sd and sd["blocks.0.attn.wq"].shape[0] == \
-        jcfg.num_layers
+    first, tail = _FIRST[arch]
+    _, pattern, repeats, tail_kinds = T.layout(tcfg)
+    assert first in sd and sd[first].shape[0] == repeats
+    assert (tail is not None) == bool(tail_kinds)
+    if tail is not None:
+        assert sd[tail].shape == (jcfg.d_model, jcfg.lru_width)
+        assert tp["tail"]["1"]["rg"]["lam"].dtype == torch.float32
+    if "rglru" in pattern:
+        assert sd["blocks.0.rg.lam"].dtype == torch.float32
+    if "rwkv6" in pattern:
+        assert sd["blocks.0.tm.w0"].dtype == torch.float32
     if jcfg.is_moe:
         assert sd["blocks.0.moe.router"].dtype == torch.float32
         assert sd["blocks.0.moe.experts.w1"].shape == (
@@ -89,6 +110,26 @@ def test_prefill_chunked_and_decode_logits_match_jax(arch, backend):
                        kernel_backend=backend)
     _close(tl2, jl2, 1e-2)
     assert tc["pos"].tolist() == [17, 17]
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b"] + RECURRENT_ARCHS)
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_chunked_prefill_matches_single_shot(arch, backend):
+    """Prefill in chunks of 8, 1, 3 and 4 tokens (conv buffer, token shifts
+    and WKV / RG-LRU state crossing every boundary; the 1-token chunk takes
+    the decode form) == one shot (tests/test_consistency.py's test, in
+    torch), logits and every state leaf."""
+    _, _, tcfg, tp = _weights(arch)
+    toks = torch.from_numpy(_tokens(tcfg, (2, 16)))
+    one = T.init_cache(tcfg, tp, 2, 48, torch.float32)
+    want, _ = T.extend(tcfg, tp, one, toks, kernel_backend=backend)
+    many = T.init_cache(tcfg, tp, 2, 48, torch.float32)
+    for a, b in ((0, 8), (8, 9), (9, 12), (12, 16)):
+        got, _ = T.extend(tcfg, tp, many, toks[:, a:b],
+                          kernel_backend=backend)
+    _close(got, want, 3e-3)
+    for x, y in zip(_flat(many), _flat(one)):
+        _close(x, y, 1e-4)
 
 
 def _j_pool(jcfg, jp, lens, toks, max_len, kv_dtype=None, logits=None):
@@ -147,25 +188,38 @@ def test_extend_row_writes_the_pool_row_like_jax(kv_dtype):
         _close(tpool["blocks"]["0"]["v"].numpy(), _leaf(jpool, "v"), 1e-4)
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return tuple(_tree_map(fn, v) for v in tree)
+
+
+def _flat(tree):
+    out = []
+    _tree_map(out.append, tree)
+    return out
+
+
 def _clone(pool):
-    return {"pos": pool["pos"].clone(), "head": (), "tail": (),
-            "blocks": {pi: {n: x.clone() for n, x in st.items()}
-                       for pi, st in pool["blocks"].items()}}
+    return _tree_map(torch.clone, pool)
 
 
 def _pool_equal(a, b):
-    return torch.equal(a["pos"], b["pos"]) and all(
-        torch.equal(a["blocks"][pi][n], b["blocks"][pi][n])
-        for pi in a["blocks"] for n in a["blocks"][pi])
+    return all(torch.equal(x, y) for x, y in zip(_flat(a), _flat(b)))
 
 
 def _row(pool, slot):
-    return [pool["pos"][slot].clone()] + [
-        x[:, slot].clone() for st in pool["blocks"].values()
-        for x in st.values()]
+    """Clones of every leaf's row ``slot`` (batch axis 1 in ``blocks``)."""
+    return ([pool["pos"][slot].clone()]
+            + [x[slot].clone() for sec in ("head", "tail")
+               for x in _flat(pool[sec])]
+            + [x[:, slot].clone() for x in _flat(pool["blocks"])])
 
 
-@pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b"]
+                         + RECURRENT_ARCHS)
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 def test_decode_run_matches_jax_and_is_exact_in_torch(backend, arch):
     """Masked decode vs the reference's decode_step (logits) and
@@ -246,10 +300,12 @@ def test_write_backs_copy_a_detached_view_and_skip_a_live_one():
                        want_row["blocks"]["0"]["k"][:, 0, 3] + 1.0)
 
 
-def test_masked_decode_equals_select_rows():
-    """Writing only the active rows in place gives the reference's
-    write-all-then-``select_rows`` result."""
-    jcfg, jp, tcfg, tp = _weights("llama3-405b")
+@pytest.mark.parametrize("arch", ["llama3-405b"] + RECURRENT_ARCHS)
+def test_masked_decode_equals_select_rows(arch):
+    """Writing only the active rows in place (K/V, slot positions and the
+    recurrent states) gives the reference's write-all-then-``select_rows``
+    result."""
+    jcfg, jp, tcfg, tp = _weights(arch)
     lens, max_len = [7, 12, 10], 32
     toks = _tokens(jcfg, (3, 16))
     pool = _t_pool(tcfg, tp, lens, toks, max_len)
@@ -260,6 +316,41 @@ def test_masked_decode_equals_select_rows():
     T.decode_step(tcfg, tp, masked, tl, active)
     want = T.select_rows(active, all_rows, pool)
     assert _pool_equal(masked, want)
+
+
+def _named_rows(pool, slot):
+    """(leaf name, row ``slot`` of the leaf) over every layer state."""
+    for sec in ("head", "tail"):
+        for st in pool[sec]:
+            yield from ((n, x[slot]) for n, x in st.items())
+    for st in pool["blocks"].values():
+        yield from ((n, x[:, slot]) for n, x in st.items())
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_reset_row_zeroes_recurrent_state(arch):
+    """``reset_row`` zeroes the rebound row's recurrent states (h, conv,
+    wkv, the shifts) and ``pos``, empties its slot positions, leaves its
+    K/V payload stale, and touches no other row."""
+    jcfg, _, tcfg, tp = _weights(arch)
+    toks = _tokens(jcfg, (2, 16))
+    pool = _t_pool(tcfg, tp, [9, 12], toks, 32)
+    before = _clone(pool)
+    T.reset_row(pool, 1)
+    assert pool["pos"].tolist() == [9, 0]
+    names = set()
+    for (n, x), (_, old) in zip(_named_rows(pool, 1), _named_rows(before, 1)):
+        names.add(n)
+        if n in ("k", "v"):
+            assert torch.equal(x, old)
+        elif n == "slot_pos":
+            assert (x == -1).all()
+        else:
+            assert old.abs().sum() > 0 and (x == 0).all(), n
+    assert names >= ({"wkv", "shift_tm", "shift_cm"} if "rwkv6" in arch
+                     else {"h", "conv", "k", "v", "slot_pos"})
+    assert all(torch.equal(x, y) for (_, x), (_, y)
+               in zip(_named_rows(pool, 0), _named_rows(before, 0)))
 
 
 def test_int8_payload_bytes_equal_and_scales_within_one_ulp():
@@ -276,8 +367,8 @@ def test_int8_payload_bytes_equal_and_scales_within_one_ulp():
                      <= ts[..., None] / 2 + 1e-7)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "deepseek-v2-lite-16b",
-                                  "whisper-tiny", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["llava-next-34b", "deepseek-v2-lite-16b",
+                                  "whisper-tiny"])
 def test_unported_families_raise_naming_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(t_tiny(arch), seed=0, dtype=torch.float32,

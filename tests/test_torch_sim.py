@@ -34,9 +34,10 @@ def test_pow2_buckets_match_reference():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Every repro_torch module imports (``models/moe.py`` among them), and
-    CPU serves of a dense and an MoE model run, with ``jax`` and ``repro``
-    blocked in ``sys.meta_path``."""
+    """Every repro_torch module imports (``models/moe.py`` and
+    ``models/ssm.py`` among them), and CPU serves of a dense, an MoE, an
+    RG-LRU hybrid and an RWKV6 model run, with ``jax`` and ``repro`` blocked
+    in ``sys.meta_path``."""
     script = r"""
 import sys
 
@@ -54,14 +55,15 @@ import torch
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
-assert "repro_torch.models.moe" in sys.modules
+assert {"repro_torch.models.moe", "repro_torch.models.ssm"} <= set(sys.modules)
 
 from repro_torch.configs import get_tiny_config
 from repro_torch.core import Priority, Request
 from repro_torch.core.engine import RealAgentXPUEngine
 from repro_torch.models import init_params
 
-for arch in ("llama3.2-3b", "qwen2-moe-a2.7b"):
+for arch in ("llama3.2-3b", "qwen2-moe-a2.7b", "recurrentgemma-9b",
+             "rwkv6-1.6b"):
     cfg = get_tiny_config(arch)
     params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     eng = RealAgentXPUEngine(cfg, params, max_len=64, device="cpu")

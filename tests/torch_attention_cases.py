@@ -53,6 +53,12 @@ def decode_case(name):
         kc, vc, sp = ring(12, B, S, Hkv, hd,
                            [[i if i < 12 else -1 for i in range(S)]] * B)
         kw = {"kv_limit": 16}
+    elif name.startswith("hd256"):  # recurrentgemma's MQA: 16/1 heads
+        B, Hq, Hkv, S, hd = 2, 16, 1, 64, 256
+        cur = np.asarray([40, 47], np.int32)
+        pos = [[i if i <= c else -1 for i in range(S)] for c in cur]
+        kc, vc, sp = ring(14, B, S, Hkv, hd, pos)
+        kw = {"window": 24} if name == "hd256_window" else {"kv_limit": 48}
     elif name == "masked_row":  # no valid slot: the finite mean of V
         B, Hq, Hkv, S, hd = 2, 4, 2, 32, 32
         cur = np.asarray([7, 0], np.int32)
@@ -66,7 +72,7 @@ def decode_case(name):
 
 
 DECODE_CASES = ["ring_wrap", "window_8", "window_24", "per_batch_positions",
-                "kv_limit", "masked_row"]
+                "kv_limit", "masked_row", "hd256_window", "hd256_kv_limit"]
 
 
 def pool_case(name):
@@ -88,6 +94,11 @@ def pool_case(name):
         pos = [[i if i < live else -1 for i in range(S)]]
         pos_q = np.broadcast_to(live - C + np.arange(C), (B, C))
         kw = {"kv_limit": 32}
+    elif name == "hd256_window_kv_limit":  # recurrentgemma's MQA, 16/1
+        B, C, Hq, Hkv, S, hd, live = 2, 20, 16, 1, 64, 256, 40
+        pos = [[i if i < live else -1 for i in range(S)]] * B
+        pos_q = np.broadcast_to(live - C + np.arange(C), (B, C))
+        kw = {"window": 16, "kv_limit": 48}
     else:
         raise KeyError(name)
     kc, vc, sp = ring(15, B, S, Hkv, hd, pos)
@@ -95,7 +106,8 @@ def pool_case(name):
     return q, kc, vc, sp, np.ascontiguousarray(pos_q, np.int32), kw
 
 
-POOL_CASES = ["gqa_4_4", "gqa_4_2", "gqa_8_1", "ring_wrap_window", "kv_limit"]
+POOL_CASES = ["gqa_4_4", "gqa_4_2", "gqa_8_1", "ring_wrap_window", "kv_limit",
+              "hd256_window_kv_limit"]
 
 
 def pool_call(q, k, v, pos_q, pos_kv, **kw):
