@@ -130,22 +130,16 @@ def cache_bytes(cache) -> int:
 # "head" and "tail" and 1 for the stacked "blocks" leaves; a ring leaf's
 # alloc axis follows its batch axis.
 
-def _states(cache):
-    """(section, key, batch axis) of every layer state of ``cache``."""
-    for i in range(len(cache["head"])):
-        yield "head", i, 0
-    for pi in cache["blocks"]:
-        yield "blocks", pi, 1
-    for i in range(len(cache["tail"])):
-        yield "tail", i, 0
-
-
 def _walk(*caches):
     """``(name, batch axis, leaves)`` of every layer-state leaf of one or
     more structurally equal caches."""
-    for sec, key, axis in _states(caches[0]):
-        for name in caches[0][sec][key]:
-            yield name, axis, [c[sec][key][name] for c in caches]
+    c0 = caches[0]
+    for sec, keys, axis in (("head", range(len(c0["head"])), 0),
+                            ("blocks", c0["blocks"], 1),
+                            ("tail", range(len(c0["tail"])), 0)):
+        for key in keys:
+            for name in c0[sec][key]:
+                yield name, axis, [c[sec][key][name] for c in caches]
 
 
 def _map_states(fn, *caches):
