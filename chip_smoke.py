@@ -12,7 +12,8 @@ path: 60 routed experts through the grouped expert GEMM kernel),
 ``recurrentgemma-9b`` (RG-LRU through the ``rglru_scan`` kernel beside local
 attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
-to the plain path in an f32 serve: see F32_TOKEN_CHECK), repeats the two
+to the plain path in an f32 serve, and its bf16 serve beside serves with a
+planted WKV fault: see F32_TOKEN_CHECK), repeats the two
 recurrent serves under the profiler, and prints the kernel table as JSON
 and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
@@ -64,10 +65,11 @@ DROP_TILE = 64
 LOGIT_MARGIN = 0.25
 # rwkv6-1.6b at random init is too ill-conditioned in bf16 for the token
 # check: two sound bf16 evaluations of it (the plain path with the prompt in
-# the engine's chunks and in one call) land further apart than LOGIT_MARGIN
-# (PERF.md, PR 13).  Its bf16 serve's largest gap is held to that noise
-# floor plus LOGIT_MARGIN, and its served tokens to LOGIT_MARGIN itself in
-# an f32 serve
+# the engine's chunks and in one call) land further apart than LOGIT_MARGIN,
+# and so do its bf16 and f32 plain evaluations (PERF.md, PR 13).  Its bf16
+# serve's largest gap is held to that noise floor plus LOGIT_MARGIN, a gate
+# whose power is shown by serves with a planted WKV fault (WKV_FAULTS), and
+# its served tokens to LOGIT_MARGIN itself in an f32 serve
 F32_TOKEN_CHECK = (RWKV_ARCH,)
 # the serves repeated under torch.profiler: this slice's paths.  The
 # earlier paths skip their profiled repeat (the trace's processing took
@@ -377,10 +379,12 @@ def rglru_cases(gen):
     """The RG-LRU recurrence of recurrentgemma-9b (lru_width 4096) as
     ``ssm.rglru_block`` calls it: x and the input gate bf16, a_log f32
     (-8 softplus(lam) sigmoid(.) < 0), a nonzero f32 h0; a 512-token
-    prefill bucket of one row and a 16-row decode step."""
+    prefill chunk of one row, the serve's largest prefill bucket (128
+    tokens) and a 16-row decode step."""
     W = 4096
     cases = []
     for name, B, S in [("prefill B=1 S=512 W=4096", 1, 512),
+                       ("prefill B=1 S=128 W=4096", 1, 128),
                        ("decode B=16 S=1 W=4096", 16, 1)]:
         x = torch.randn((B, S, W), generator=gen, device="cuda").bfloat16()
         gate = torch.sigmoid(torch.randn((B, S, W), generator=gen,
@@ -414,11 +418,13 @@ def rwkv6_cases(gen):
     """The WKV6 recurrence of rwkv6-1.6b (32 heads of 64) as
     ``ssm.rwkv6_block`` calls it: r/k/v bf16 and w_log f32 as (B, S, H, D)
     -> (B, H, S, D) head-split views, u the (H, 1, D) bf16 bonus, a nonzero
-    f32 state0; a 512-token prefill bucket of one row (B*H 32) and a 16-row
-    decode step (B*H 512)."""
+    f32 state0; a 512-token prefill chunk of one row (B*H 32), the serve's
+    largest prefill bucket (128 tokens) and a 16-row decode step (B*H
+    512)."""
     H, D = 32, 64
     cases = []
     for name, B, S in [("prefill BH=32 S=512 D=64", 1, 512),
+                       ("prefill BH=32 S=128 D=64", 1, 128),
                        ("decode BH=512 S=1 D=64", 16, 1)]:
         def split(x):
             return x.reshape(B, S, H, D).transpose(1, 2)
@@ -438,13 +444,14 @@ def rwkv6_cases(gen):
 
 def rwkv6_work(args, kw):
     """(bytes, operations): r, k, v, w_log, u and state0 read once, the
-    output and the final state written once; ~6 D^2 f32 operations a token
-    per (row, head): r S and r u k (2 D^2), the state decay and update
-    (3 D^2), and the bonus term."""
+    output and the final state written once; 5 D^2 + 6 D f32 operations a
+    token per (row, head): r S (2 D^2), the state decay and update w S + k
+    v (3 D^2), e^w (D), the bonus sum_d r_d u_d k_d (3 D) and its v_e
+    term added to the output (2 D)."""
     r, k, v, w_log, u, state0 = args
     B, H, S, D = r.shape
     return (nbytes(r, k, v, w_log, u, state0) + nbytes(r, state0),
-            6 * B * H * S * D * D)
+            B * H * S * (5 * D * D + 6 * D))
 
 
 def rwkv6_skip(args):
@@ -742,21 +749,21 @@ def _routing_at(cfg, params, f, served, chunks, i, *, dtype, kv_dtype,
     return seen[-cfg.num_layers:]
 
 
-def plain_check(cfg, params, eng, flows, *, dtype, kv_dtype=None,
-                chunks=None, gate=True):
-    """Teacher-forced plain path on the card: each flow's prompt (in the
-    engine's own prefill chunks when ``chunks`` is given: MoE capacity
-    depends on a call's token count), then its served tokens one at a
-    time, through ``extend`` with ``kernel_backend="plain"``; every served
-    token must be the plain argmax or within LOGIT_MARGIN of it (``gate``;
-    otherwise the gaps are only measured).  For MoE, a token outside the
-    margin is first traced to a routing flip or not.  Returns (exact
-    matches, tokens, largest gap)."""
+def plain_check(cfg, params, eng, flows, chunks, *, dtype, kv_dtype=None,
+                gate=True):
+    """Teacher-forced plain path on the card: each flow's prompt in the
+    engine's own prefill ``chunks`` (MoE capacity depends on a call's token
+    count; recurrent states cross the same chunk boundaries), then its
+    served tokens one at a time, through ``extend`` with
+    ``kernel_backend="plain"``; every served token must be the plain argmax
+    or within LOGIT_MARGIN of it (``gate``; otherwise the gaps are only
+    measured).  For MoE, a token outside the margin is first traced to a
+    routing flip or not.  Returns (exact matches, tokens, largest gap)."""
     exact = total = 0
     worst, at = 0.0, None
     for f in flows:
         served = eng.output_tokens(f["id"])
-        fc = None if chunks is None else chunks[f["id"]]
+        fc = chunks[f["id"]]
         steps = _teacher_forced(cfg, params, f, served, fc, dtype=dtype,
                                 kv_dtype=kv_dtype, backend="plain")
         for i, (t, logits) in enumerate(zip(served, steps)):
@@ -781,22 +788,30 @@ def plain_check(cfg, params, eng, flows, *, dtype, kv_dtype=None,
     return exact, total, worst
 
 
-def plain_noise_floor(cfg, params, eng, flows, chunks, *, dtype):
-    """The plain path against itself: each flow teacher-forced on its
-    served tokens with the prompt in the engine's chunks and in one call
-    (the same function; only bf16 rounding differs).  Returns the largest
-    gap of the first's argmax under the second's logits: how far apart two
-    sound evaluations of the model land."""
-    worst = 0.0
+def plain_disagreement(cfg, params, params32, eng, flows, chunks):
+    """The plain path against itself, teacher-forced on each flow's served
+    tokens: with the prompt in the engine's chunks (bf16) as the first
+    evaluation, and as the second the prompt in one call (bf16: the same
+    function, only the rounding differs) or the same chunks in f32
+    (``params32``, weights from the same seed).  Returns the largest gap of
+    the first's argmax under each second's logits: (bf16 noise floor, bf16
+    vs f32)."""
+    floor = vs_f32 = 0.0
     for f in flows:
-        served = eng.output_tokens(f["id"])
-        kw = dict(dtype=dtype, kv_dtype=None, backend="plain")
-        a = _teacher_forced(cfg, params, f, served, chunks[f["id"]], **kw)
-        b = _teacher_forced(cfg, params, f, served, None, **kw)
-        for la, lb in zip(a, b):
-            la, lb = la[0].float(), lb[0].float()
-            worst = max(worst, (lb.max() - lb[la.argmax()]).item())
-    return worst
+        served, fc = eng.output_tokens(f["id"]), chunks[f["id"]]
+        kw = dict(kv_dtype=None, backend="plain")
+        a = _teacher_forced(cfg, params, f, served, fc, dtype=torch.bfloat16,
+                            **kw)
+        b = _teacher_forced(cfg, params, f, served, None,
+                            dtype=torch.bfloat16, **kw)
+        c = _teacher_forced(cfg, params32, f, served, fc,
+                            dtype=torch.float32, **kw)
+        for la, lb, lc in zip(a, b, c):
+            top = la[0].float().argmax()
+            lb, lc = lb[0].float(), lc[0].float()
+            floor = max(floor, (lb.max() - lb[top]).item())
+            vs_f32 = max(vs_f32, (lc.max() - lc[top]).item())
+    return floor, vs_f32
 
 
 def _routing_flips(cfg, params, f, served, chunks, i, *, dtype, kv_dtype):
@@ -924,37 +939,20 @@ def bf16_serve(cfg, params):
         + json.dumps(serve_stats["first_token_from_start_wall_s"])
         + "; scheduler-clock TTFT (sim s): "
         + json.dumps(serve_stats["ttft_sim_s"]))
-    # MoE capacity depends on a call's token count, so the plain path
-    # replays the engine's prefill chunks; the recurrent families replay
-    # them too, so their states cross the same chunk boundaries
-    replay = cfg.is_moe or cfg.name in (RG_ARCH, RWKV_ARCH)
     gate = cfg.name not in F32_TOKEN_CHECK
     t0 = time.perf_counter()
-    exact, total, worst = plain_check(
-        cfg, params, eng, flows, dtype=torch.bfloat16,
-        chunks=chunks if replay else None, gate=gate)
+    exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                      dtype=torch.bfloat16, gate=gate)
     log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
         f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
         f"(margin {LOGIT_MARGIN}"
         + ("" if gate else ", not held to it in bf16: see below")
-        + f"), {time.perf_counter() - t0:.1f} s"
-        + (f"; prefill replayed in the engine's chunks {chunks}"
-           if replay else ""))
+        + f"), {time.perf_counter() - t0:.1f} s; prefill replayed in the "
+        f"engine's chunks {chunks}")
     serve_stats.update(plain_exact=exact, plain_total=total,
                        plain_worst_gap=worst, plain_gated=gate)
     if not gate:
-        floor = plain_noise_floor(cfg, params, eng, flows, chunks,
-                                  dtype=torch.bfloat16)
-        log(f"[check] {label}: the plain path against itself (prompt in "
-            f"the engine's chunks vs in one call) lands {floor:.4f} apart "
-            f"at its largest gap; the kernel path's {worst:.4f} must be "
-            f"within it plus the margin")
-        if worst > floor + LOGIT_MARGIN:
-            raise AssertionError(
-                f"[{label}] the kernel path's largest gap {worst:.4f} "
-                f"exceeds the plain path's own {floor:.4f} plus the margin "
-                f"{LOGIT_MARGIN}")
-        serve_stats["plain_noise_floor_gap"] = floor
+        serve_stats.update(bf16_gate(cfg, params, eng, flows, chunks, worst))
     del eng
     _release()
     if cfg.name in PROFILED:
@@ -962,18 +960,105 @@ def bf16_serve(cfg, params):
     return serve_stats
 
 
+def _wkv_skip_in_prefill(args):
+    """One token's update skipped in every prefill chunk (decode steps
+    untouched): a kernel that drops a step inside a chunk."""
+    return rwkv6_skip(args) if args[0].shape[2] > 1 else args
+
+
+def _wkv_drop_state(args):
+    """state0 zeroed in every call: a kernel that ignores the state it is
+    handed, so no call sees the tokens of an earlier one."""
+    return args[:5] + (torch.zeros_like(args[5]),)
+
+
+# WKV faults planted in a bf16 serve of an F32_TOKEN_CHECK family, each of
+# which the gate must catch: (name, fault of the kernel's inputs)
+WKV_FAULTS = [("one token's update skipped in every prefill chunk",
+               _wkv_skip_in_prefill),
+              ("state0 zeroed in every call", _wkv_drop_state)]
+
+
+def faulty_serve_gap(cfg, params, flows, plant):
+    """The bf16 serve of ``flows`` with every ``rwkv6_scan`` launch given
+    ``plant``'s faulty inputs; returns the largest gap of its served tokens
+    under the plain path (prompt in the engine's chunks)."""
+    from repro_torch.kernels import ops
+    real = ops.rwkv6_scan
+
+    def faulty(r, k, v, w_log, u, state0=None):
+        return real(*plant((r, k, v, w_log, u, state0)))
+
+    ops.rwkv6_scan = faulty
+    try:
+        eng, _, _, _, launches, chunks = serve(
+            cfg, params, flows, device="cuda", dtype=torch.bfloat16)
+    finally:
+        ops.rwkv6_scan = real
+    if not launches["rwkv6_scan"]:
+        raise AssertionError("the faulty serve launched no rwkv6_scan")
+    _, _, worst = plain_check(cfg, params, eng, flows, chunks,
+                              dtype=torch.bfloat16, gate=False)
+    del eng
+    _release()
+    return worst
+
+
+def bf16_gate(cfg, params, eng, flows, chunks, worst):
+    """The bf16 gate of an F32_TOKEN_CHECK family: the kernel path's
+    largest gap must be within the plain path's own noise floor (the prompt
+    in the engine's chunks vs in one call) plus LOGIT_MARGIN.  A second
+    witness of the ill-conditioning is measured (the plain path in bf16
+    against the plain path in f32 on the same tokens), and the gate's power:
+    serves with a planted WKV fault (WKV_FAULTS), whose largest gap must
+    exceed what the gate accepts."""
+    from repro_torch.models import init_params
+    label = f"{cfg.name} bf16"
+    params32 = init_params(cfg, seed=SEED, dtype=torch.float32,
+                           device="cuda")
+    floor, vs_f32 = plain_disagreement(cfg, params, params32, eng, flows,
+                                       chunks)
+    del params32
+    _release()
+    limit = floor + LOGIT_MARGIN
+    log(f"[check] {label}: the plain path against itself lands {floor:.4f} "
+        f"apart at its largest gap (prompt in the engine's chunks vs in one "
+        f"call), and {vs_f32:.4f} apart in bf16 vs f32 (the same chunks); "
+        f"the kernel path's {worst:.4f} must be within {floor:.4f} plus the "
+        f"margin ({limit:.4f})")
+    if worst > limit:
+        raise AssertionError(
+            f"[{label}] the kernel path's largest gap {worst:.4f} exceeds "
+            f"the plain path's own {floor:.4f} plus the margin "
+            f"{LOGIT_MARGIN}")
+    faults = {}
+    for name, plant in WKV_FAULTS:
+        t0 = time.perf_counter()
+        faults[name] = gap = faulty_serve_gap(cfg, params, flows, plant)
+        log(f"[check] {label} with a planted WKV fault ({name}): largest "
+            f"gap {gap:.4f}, {gap / limit:.2f} x the gate's {limit:.4f}: "
+            + ("caught" if gap > limit else "NOT caught")
+            + f", {time.perf_counter() - t0:.1f} s")
+    missed = [n for n, gap in faults.items() if not gap > limit]
+    if missed:
+        raise AssertionError(f"[{label}] the bf16 gate {limit:.4f} would "
+                             f"not catch {missed}: {faults}")
+    return dict(plain_noise_floor_gap=floor, plain_bf16_vs_f32_gap=vs_f32,
+                planted_fault_gaps=faults)
+
+
 def serve_phase():
     """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool."""
     cfg, params = _init(ARCH)
     serve_stats = bf16_serve(cfg, params)
     flows8 = make_flows(cfg, 2, 16, np.random.default_rng(SEED + 1))
-    eng8, m8, wall8, _, launches8, _ = serve(
+    eng8, m8, wall8, _, launches8, chunks8 = serve(
         cfg, params, flows8, device="cuda", dtype=torch.bfloat16,
         kv_dtype="int8", inject_after=12)
     check_serve(cfg, eng8, m8, flows8, launches8, f"{ARCH} int8",
                 need_abort=False)
     exact8, total8, worst8 = plain_check(cfg, params, eng8, flows8,
-                                         dtype=torch.bfloat16,
+                                         chunks8, dtype=torch.bfloat16,
                                          kv_dtype="int8")
     log(f"[check] {ARCH} int8 serve: {len(m8.completed)}/{len(flows8)} flows "
         f"in {wall8:.3f} s wall, launches {launches8}; vs plain path "
@@ -1013,8 +1098,8 @@ def f32_token_check(cfg):
         cfg, params, flows, device="cuda", dtype=torch.float32)
     check_serve(cfg, eng, metrics, flows, launches, label)
     t0 = time.perf_counter()
-    exact, total, worst = plain_check(cfg, params, eng, flows,
-                                      dtype=torch.float32, chunks=chunks)
+    exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                      dtype=torch.float32)
     log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
         f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
         f"(margin {LOGIT_MARGIN}), serve {wall:.3f} s, launches "

@@ -266,14 +266,17 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
     """WKV6 from ``state0`` (zeros when None, which is the Pallas
     ``rwkv6_scan``; a state is what ``rwkv6_apply`` folds in):
     ``o_t = r_t (S + diag(u) k_t^T v_t)``, ``S <- diag(e^{w_t}) S + k_t^T
-    v_t``.  r/k/v (..., S, D) float32 or bfloat16 (one dtype) with one or
-    two leading axes ((BH,) or (B, H)); w_log the same shape, float32; u
-    (..., 1, D) broadcast over the leading axes; state0 (..., D, D) float32.
-    The D axis has stride 1, the others any stride.  Returns (out (..., S,
-    D) in r.dtype, final state (..., D, D) float32)."""
+    v_t``.  r/k/v (B, H, S, D) float32 or bfloat16 (one dtype); w_log the
+    same shape, float32; u (H, 1, D) or (B, H, 1, D); state0 (B, H, D, D)
+    float32.  The D axis has stride 1, the others any stride.  Returns (out
+    (B, H, S, D) in r.dtype, final state (B, H, D, D) float32)."""
+    name = "rwkv6_scan"
+    _require(r.ndim == 4 and k.shape == r.shape == v.shape == w_log.shape,
+             f"{name}: r/k/v/w_log {tuple(r.shape)}/{tuple(k.shape)}/"
+             f"{tuple(v.shape)}/{tuple(w_log.shape)} are not one "
+             "(B, H, S, D) shape")
     if r.device.type == "cpu":
         return ref.rwkv6_scan(r, k, v, w_log, u, state0)
-    name = "rwkv6_scan"
     _require(r.device.type == "cuda", f"{name}: no kernel for {r.device}")
     tensors = [k, v, w_log, u] + ([] if state0 is None else [state0])
     _require(all(t.device == r.device for t in tensors),
@@ -284,16 +287,6 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
     _require(w_log.dtype == torch.float32
              and (state0 is None or state0.dtype == torch.float32),
              f"{name}: w_log and state0 must be float32")
-    _require(r.ndim in (3, 4) and k.shape == r.shape == v.shape
-             == w_log.shape,
-             f"{name}: r/k/v/w_log {tuple(r.shape)}/{tuple(k.shape)}/"
-             f"{tuple(v.shape)}/{tuple(w_log.shape)} are not one "
-             "(BH, S, D) or (B, H, S, D) shape")
-    squeeze = r.ndim == 3
-    if squeeze:
-        r, k, v, w_log = (t.unsqueeze(0) for t in (r, k, v, w_log))
-        u = u.unsqueeze(0) if u.ndim == 3 else u
-        state0 = None if state0 is None else state0.unsqueeze(0)
     B, H, S, D = r.shape
     _require(D in RWKV6_HEAD_DIMS,
              f"{name}: head size {D} not in {RWKV6_HEAD_DIMS}")
@@ -324,6 +317,4 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
         s_out.data_ptr(),
         torch.cuda.current_stream(r.device).cuda_stream)
     _launched(name, rc)
-    if squeeze:
-        return out[0], s_out[0]
     return out, s_out

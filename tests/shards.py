@@ -30,7 +30,6 @@ SHARDS: Dict[str, List[str]] = {
         "test_configs.py",
         "test_torch_kernels.py",
         "test_torch_cuda.py",
-        "test_torch_ssm.py",
     ],
     "kv-pool": [
         "test_quant_kv.py",

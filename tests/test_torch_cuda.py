@@ -191,11 +191,12 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dtype):
 @pytest.mark.parametrize("with_state", [False, True])
 def test_rwkv6_scan_kernel_matches_plain(cuda, BH, S, D, dtype, with_state):
     """D 32 and 64, ragged S, a decode step, zero or nonzero state0, on
-    strided views."""
+    strided views (the (BH, S, D) cases as B = 1)."""
     r, k, v, w, u, s0 = rwkv6_case(BH, S, D)
-    tr, tk, tv = (_wide(t, dtype, cuda) for t in (r, k, v))
-    tw, tu = _wide(w, torch.float32, cuda), _wide(u, torch.float32, cuda)
-    ts0 = _wide(s0, torch.float32, cuda) if with_state else None
+    tr, tk, tv = (_wide(t, dtype, cuda)[None] for t in (r, k, v))
+    tw = _wide(w, torch.float32, cuda)[None]
+    tu = _wide(u, torch.float32, cuda)[None]
+    ts0 = _wide(s0, torch.float32, cuda)[None] if with_state else None
     before = ops.LAUNCHES["rwkv6_scan"]
     o, s = ops.rwkv6_scan(tr, tk, tv, tw, tu, ts0)
     torch.cuda.synchronize()
@@ -233,13 +234,15 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="stride 1"):
         ops.rglru_scan(x.transpose(1, 2), x.transpose(1, 2),
                        x.transpose(1, 2), x[:, :, 0])
-    r = torch.zeros((2, 4, 48), device=cuda)  # head size 48
+    r = torch.zeros((1, 2, 4, 48), device=cuda)  # head size 48
     with pytest.raises(ValueError, match="head size"):
-        ops.rwkv6_scan(r, r, r, r, r[:, :1])
-    r = torch.zeros((2, 4, 32), device=cuda)
+        ops.rwkv6_scan(r, r, r, r, r[:, :, :1])
+    r = torch.zeros((1, 2, 4, 32), device=cuda)
     with pytest.raises(ValueError, match="state0"):
-        ops.rwkv6_scan(r, r, r, r, r[:, :1], torch.zeros((2, 32, 16),
-                                                        device=cuda))
+        ops.rwkv6_scan(r, r, r, r, r[:, :, :1],
+                       torch.zeros((1, 2, 32, 16), device=cuda))
+    with pytest.raises(ValueError, match=r"\(B, H, S, D\)"):
+        ops.rwkv6_scan(r[0], r[0], r[0], r[0], r[0, :, :1])
 
 
 # kernels each tiny serve must launch with kernel_backend="cuda"

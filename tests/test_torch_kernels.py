@@ -1,17 +1,19 @@
-"""PyTorch port: the attention kernels' plain versions against the JAX
-reference (``repro.kernels.ref`` / the XLA attention and the Pallas kernels
-in interpret mode), and the CUDA kernels against their plain versions on a
-card (marked ``cuda``; they skip without one).
+"""PyTorch port: the attention and scan kernels' plain versions against
+the JAX reference (``repro.kernels.ref`` / the XLA attention and the Pallas
+kernels in interpret mode); the CUDA kernels are held to these plain
+versions on a card in tests/test_torch_cuda.py.
 
 Inputs are made with numpy from a seed and handed to both frameworks.
-Tolerance: 2e-5 in f32 — the reference's own kernel-vs-oracle tolerance
-(tests/test_kernels.py); only the summation order differs."""
+Tolerance for attention: 2e-5 in f32 — the reference's own
+kernel-vs-oracle tolerance (tests/test_kernels.py); only the summation
+order differs.  The scans' tolerances stand beside their tests."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.models import attention as JA
 from repro.models import dequantize_kv as j_dequantize_kv
 from repro.models import quantize_kv as j_quantize_kv
@@ -19,6 +21,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as TA
 from torch_attention_cases import (DECODE_CASES, POOL_CASES, decode_case,
                                    pool_call, pool_case, ring, to_torch)
+from torch_recurrent_cases import (RGLRU_CASES, RWKV6_CASES, rglru_case,
+                                   rwkv6_case)
 
 TOL = 2e-5
 
@@ -154,3 +158,80 @@ def test_wrappers_raise_off_cpu_without_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention_pool(q[:, :, None], k.transpose(1, 2),
                                  k.transpose(1, 2), sp[:, :1], sp)
+
+
+# -- the recurrent scans ------------------------------------------------------
+# The plain versions (what ops.rglru_scan / ops.rwkv6_scan run for CPU
+# tensors, and what the CUDA kernels are held to on the card) against the
+# Pallas kernels in interpret mode, ops.rwkv6_apply with a nonzero initial
+# state, and the per-timestep oracles of repro.kernels.ref.  Tolerances:
+# 1e-5 where both sides run the same per-timestep recurrence in f32
+# (summation order only); 2e-3 against the Pallas WKV6 kernel, the
+# reference's own kernel-vs-oracle tolerance (its chunked log-space form
+# rounds differently).
+def _t(*xs):
+    return [torch.from_numpy(np.array(x, copy=True)) for x in xs]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_CASES)
+def test_rglru_scan_plain_matches_pallas_and_oracle(B, S, W):
+    x, a, g, h0 = rglru_case(B, S, W)
+    jx = [jnp.asarray(t) for t in (x, a, g, h0)]
+    p_h, p_f = jops.rglru_scan(*jx)  # Pallas, interpret mode on the CPU
+    o_h, o_f = jref.rglru_scan_ref(*jx)
+    before = dict(ops.LAUNCHES)
+    h, f = ops.rglru_scan(*_t(x, a, g, h0))
+    assert ops.LAUNCHES == before  # CPU tensors never reach a kernel
+    assert h.shape == (B, S, W) and f.shape == (B, W)
+    for want_h, want_f in ((p_h, p_f), (o_h, o_f)):
+        _close(h, want_h, 1e-5)
+        _close(f, want_f, 1e-5)
+    _close(f, h[:, -1], 0)
+
+
+@pytest.mark.parametrize("BH,S,D", RWKV6_CASES)
+def test_rwkv6_scan_plain_matches_pallas_apply_and_oracle(BH, S, D):
+    r, k, v, w, u, s0 = rwkv6_case(BH, S, D)
+    jx = [jnp.asarray(t) for t in (r, k, v, w, u)]
+    chunk = min(32, S) if S % min(32, S) == 0 else S
+    # the port takes (B, H, S, D): the Pallas layout (BH, S, D) as B = 1
+    tr, tk, tv, tw, tu, ts0 = (t[None] for t in _t(r, k, v, w, u, s0))
+    # zero state: the Pallas kernel (interpret mode) and the oracle
+    o, s = ops.rwkv6_scan(tr, tk, tv, tw, tu)
+    o, s = o[0], s[0]
+    p_o, p_s = jops.rwkv6_scan(*jx, chunk=chunk)
+    _close(o, p_o, 2e-3)
+    _close(s, p_s, 2e-3)
+    o_o, o_s = jref.rwkv6_scan_ref(*jx)
+    _close(o, o_o, 1e-5)
+    _close(s, o_s, 1e-5)
+    # a nonzero initial state: rwkv6_apply folds it in by linearity
+    o, s = ops.rwkv6_scan(tr, tk, tv, tw, tu, ts0)
+    o, s = o[0], s[0]
+    a_o, a_s = jops.rwkv6_apply(*jx, jnp.asarray(s0), chunk=chunk)
+    _close(o, a_o, 2e-3)
+    _close(s, a_s, 2e-3)
+    o_o, o_s = jref.rwkv6_scan_ref(*jx, state0=jnp.asarray(s0))
+    _close(o, o_o, 1e-5)
+    _close(s, o_s, 1e-5)
+
+
+def test_scan_wrappers_raise_off_cpu_without_kernel():
+    """Only a CPU tensor reaches a scan's plain version: any other device
+    must reach a kernel or raise (here: no kernel for the meta device)."""
+    x = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.rglru_scan(x, x, x, x[:, 0])
+    r = torch.empty((1, 2, 4, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.rwkv6_scan(r, r, r, r, r[:, :, :1])
+    # the WKV6 wrapper takes only the model's (B, H, S, D), on any device
+    r = torch.zeros((2, 4, 32))
+    with pytest.raises(ValueError, match=r"\(B, H, S, D\)"):
+        ops.rwkv6_scan(r, r, r, r, r[:, :1])

@@ -16,9 +16,13 @@ import torch
 
 from repro import models as J
 from repro.configs import get_tiny_config as j_tiny
+from repro.models import ssm as jssm
 from repro_torch import models as T
 from repro_torch.configs import get_tiny_config as t_tiny
-from torch_recurrent_cases import RECURRENT_ARCHS, TAIL, tiny
+from repro_torch.kernels import ops
+from repro_torch.models import ssm as tssm
+from torch_recurrent_cases import (RECURRENT_ARCHS, RGLRU_CASES, TAIL,
+                                   rglru_case, rwkv6_case, tiny)
 
 ARCHS = ["llama3-405b", "llama3.2-3b", "qwen2-moe-a2.7b"] + RECURRENT_ARCHS
 
@@ -379,3 +383,140 @@ def test_moe_with_dense_head_layers_raises_naming_roadmap():
     cfg = t_tiny("qwen2-moe-a2.7b").with_overrides(first_k_dense_layers=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+
+
+# -- the recurrent mixers -----------------------------------------------------
+# The model-path scans (log-depth RG-LRU scan, chunked WKV6) against
+# repro.models.ssm, and the RG-LRU and RWKV6 blocks, prefill and decode,
+# against the reference's blocks at tiny widths in f32, with masked state
+# writes.  Tolerance 1e-5 for the RG-LRU scans (the same f32 recurrence),
+# 1e-4 for the WKV6 forms and the blocks (f32 matmuls of either framework
+# feed the recurrence).
+def _t(*xs):
+    return [torch.from_numpy(np.array(x, copy=True)) for x in xs]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_CASES)
+def test_rglru_model_scan_matches_associative_scan(B, S, W):
+    """The log-depth scan of the plain model path and its folded initial
+    state, against ``jax.lax.associative_scan`` in the reference."""
+    x, a, g, h0 = rglru_case(B, S, W, seed=1)
+    jh, ja = jssm.rglru_scan(jnp.asarray(x), jnp.asarray(a), jnp.asarray(g))
+    th, ta = tssm.rglru_scan(*_t(x, a, g))
+    _close(th, jh, 1e-5)
+    _close(ta, ja, 1e-5)
+    # with h0 folded in, the sequential recurrence
+    want, _ = ops.rglru_scan(*_t(x, a, g, h0))
+    _close(th + ta * torch.from_numpy(h0)[:, None], want, 1e-5)
+
+
+@pytest.mark.parametrize("S", [1, 32, 45])
+def test_rwkv6_model_scans_match_reference(S):
+    """The plain model path (chunked pairwise form, ragged last chunk;
+    single step at S == 1) from a nonzero state, against the reference's
+    ``rwkv6_scan_chunked`` / ``rwkv6_step``, on (B, H, S, D) head splits;
+    and the scan plain version on the same 4-D layout with a per-head u."""
+    B, H, D = 2, 3, 32
+    r, k, v, w, _, s0 = rwkv6_case(B * H, S, D, seed=2)
+    r, k, v, w = (t.reshape(B, H, S, D) for t in (r, k, v, w))
+    s0 = s0.reshape(B, H, D, D)
+    u = np.random.default_rng(3).standard_normal((H, D), dtype=np.float32)
+    jx = [jnp.asarray(t) for t in (r, k, v, w, u, s0)]
+    tx = _t(r, k, v, w, u, s0)
+    if S == 1:
+        jo, js = jssm.rwkv6_step(*[t[:, :, 0] for t in jx[:4]], jx[4], jx[5])
+        to, ts = tssm.rwkv6_step(*[t[:, :, 0] for t in tx[:4]], tx[4], tx[5])
+        to = to[:, :, None]
+        jo = jo[:, :, None]
+    else:
+        jo, js = jssm.rwkv6_scan_chunked(*jx, chunk=32)
+        to, ts = tssm.rwkv6_scan_chunked(*tx, chunk=32)
+    _close(to, jo, 1e-4)
+    _close(ts, js, 1e-4)
+    ko, ks = ops.rwkv6_scan(*tx[:4], tx[4][:, None], tx[5])
+    _close(ko, to, 1e-4)
+    _close(ks, ts, 1e-4)
+
+
+def _layer(arch, name):
+    """Tiny ``arch``'s first block (repeat 0) as JAX and port parameter
+    trees, f32."""
+    cfg = j_tiny(arch)
+    jp = J.init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+    jl = jax.tree_util.tree_map(lambda x: x[0], jp["blocks"]["0"][name])
+    tl = T.module_from_state_dict(T.from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jl)))
+    return cfg, jl, tl
+
+
+def _state(cfg, kind, B, seed):
+    """A nonzero layer state in both frameworks (numpy from a seed)."""
+    rng = np.random.default_rng(seed)
+    if kind == "rglru":
+        shapes = {"h": (B, cfg.lru_width),
+                  "conv": (B, cfg.conv1d_width - 1, cfg.lru_width)}
+    else:
+        H, D = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+        shapes = {"wkv": (B, H, D, D), "shift_tm": (B, cfg.d_model),
+                  "shift_cm": (B, cfg.d_model)}
+    st = {n: rng.standard_normal(s, dtype=np.float32) * 0.3
+          for n, s in shapes.items()}
+    return st, {n: torch.from_numpy(x.copy()) for n, x in st.items()}
+
+
+@pytest.mark.parametrize("S", [1, 2, 19])
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_rglru_block_matches_reference(S, backend):
+    """Prefill chunks (S > 1, the conv buffer crossing the call boundary)
+    and a decode step (S == 1), from a nonzero state; only the active rows'
+    state moves."""
+    cfg, jl, tl = _layer("recurrentgemma-9b", "rg")
+    B = 3
+    x = np.random.default_rng(4).standard_normal(
+        (B, S, cfg.d_model), dtype=np.float32)
+    jst, tst = _state(cfg, "rglru", B, seed=5)
+    mode = "decode" if S == 1 else "prefill"
+    jx = jnp.asarray(x[:, 0] if S == 1 else x)
+    jy, (jh, jc) = jssm.rglru_block(jx, jl, cfg, mode=mode,
+                                    state=(jnp.asarray(jst["h"]),
+                                           jnp.asarray(jst["conv"])))
+    old = {n: t.clone() for n, t in tst.items()}
+    active = torch.tensor([True, False, True])
+    ctx = {"kernel_backend": backend, "active": active}
+    ty = tssm.rglru_block(torch.from_numpy(x), tl, cfg, tst, ctx)
+    _close(ty[:, 0] if S == 1 else ty, jy, 1e-4)
+    for n, want in (("h", jh), ("conv", jc)):
+        _close(tst[n][active], np.asarray(want)[active.numpy()], 1e-4)
+        assert torch.equal(tst[n][~active], old[n][~active])
+
+
+@pytest.mark.parametrize("S", [1, 2, 45])
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_rwkv6_block_matches_reference(S, backend):
+    """Time mix and channel mix, prefill (ragged last WKV chunk) and
+    decode, from a nonzero state; only the active rows' state moves."""
+    cfg, jl, tl = _layer("rwkv6-1.6b", "tm")
+    B = 3
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    x2 = rng.standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    jst, tst = _state(cfg, "rwkv6", B, seed=7)
+    mode = "decode" if S == 1 else "prefill"
+    jx = jnp.asarray(x[:, 0] if S == 1 else x)
+    jy, (j_shift, j_wkv) = jssm.rwkv6_block(
+        jx, jl, cfg, mode=mode, shift_state=jnp.asarray(jst["shift_tm"]),
+        wkv_state=jnp.asarray(jst["wkv"]))
+    from repro.models.transformer import _rwkv6_channel_mix
+    jy2, j_cm = _rwkv6_channel_mix(jnp.asarray(x2), jl["cm"],
+                                   jnp.asarray(jst["shift_cm"]))
+    old = {n: t.clone() for n, t in tst.items()}
+    active = torch.tensor([False, True, True])
+    ctx = {"kernel_backend": backend, "active": active, "ssm_chunk": 32}
+    ty = tssm.rwkv6_block(torch.from_numpy(x), tl, cfg, tst, ctx)
+    ty2 = tssm.rwkv6_channel_mix(torch.from_numpy(x2), tl["cm"], tst, ctx)
+    _close(ty[:, 0] if S == 1 else ty, jy, 1e-4)
+    _close(ty2, jy2, 1e-4)
+    for n, want in (("wkv", j_wkv), ("shift_tm", j_shift),
+                    ("shift_cm", j_cm)):
+        _close(tst[n][active], np.asarray(want)[active.numpy()], 1e-4)
+        assert torch.equal(tst[n][~active], old[n][~active])

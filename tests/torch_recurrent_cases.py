@@ -1,5 +1,5 @@
 """Recurrent-family test cases shared by the CPU parity tests
-(test_torch_ssm.py, test_torch_models.py, test_torch_engine.py) and the
+(test_torch_kernels.py, test_torch_models.py, test_torch_engine.py) and the
 on-card tests (test_torch_cuda.py): the tiny configs, including a
 recurrentgemma variant with a tail, and numpy scan inputs made from fixed
 seeds.  Imports no JAX, so the on-card tests run where JAX is absent."""
