@@ -3,8 +3,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version at the serving paths' shapes and
-times both, serves ``llama3.2-3b`` at full width (bf16, random weights from
+kernel against its plain PyTorch version at the serving and training
+paths' shapes and times both (the training flash attention forward and
+backward beside SDPA), trains ``llama3.2-3b`` at full width (f32, AdamW,
+remat; one step's loss and gradients through the kernels held to the plain
+path, a planted backward fault caught, one step profiled, then five steps
+through the port's launcher with the loss falling), serves
+``llama3.2-3b`` at full width (bf16, random weights from
 a seeded device generator) through the port's ``RealAgentXPUEngine``,
 checks every served token against the plain path on the same card, repeats
 a shorter serve with an int8 KV pool, serves ``qwen2-moe-a2.7b`` (the MoE
@@ -13,9 +18,8 @@ path: 60 routed experts through the grouped expert GEMM kernel),
 attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
 to the plain path in an f32 serve, and its bf16 serve beside serves with a
-planted WKV fault: see F32_TOKEN_CHECK), repeats the two
-recurrent serves under the profiler, and prints the kernel table as JSON
-and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed phase
+planted WKV fault: see F32_TOKEN_CHECK), and prints the kernel table as
+JSON and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
 is visible or when run outside the repository.  Imports no JAX.
 """
@@ -71,11 +75,28 @@ LOGIT_MARGIN = 0.25
 # whose power is shown by serves with a planted WKV fault (WKV_FAULTS), and
 # its served tokens to LOGIT_MARGIN itself in an f32 serve
 F32_TOKEN_CHECK = (RWKV_ARCH,)
-# the serves repeated under torch.profiler: this slice's paths.  The
-# earlier paths skip their profiled repeat (the trace's processing took
-# 158 s for llama3.2-3b and 189 s for qwen2-moe-a2.7b on the H100, PERF.md,
-# PR 13), which keeps the script near half its time limit
-PROFILED = (RG_ARCH, RWKV_ARCH)
+# the run repeated under torch.profiler: this slice's path, the training
+# step.  The serves skip their profiled repeat (the trace's processing took
+# 88-189 s a serve on the H100, PERF.md, PR 13), which keeps the script near
+# half its time limit
+# the training phase: llama3.2-3b at full width in f32, a batch of
+# TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS AdamW steps through the
+# launcher.  One step at fixed weights and batch through the kernels is held
+# to the plain path: the loss to TRAIN_LOSS_REL relative, every gradient
+# leaf to TRAIN_GRAD_REL relative L2 (both paths are f32 with f32 matmuls;
+# only the attention's summation order differs), a limit that a step with
+# one dK/dV tile of FLASH_DROP keys dropped in every layer must exceed
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5
+# the launcher's learning rate for the five steps.  Its default, 3e-4, has
+# a one-step warmup at five steps, and Adam's first steps move every weight
+# by about the rate: from random init the 3.2 B model's loss then rose
+# after the first step (12.51, 10.36, 12.89, 14.38, 16.98 on the H100), and
+# at 3e-5 and 1e-5 it swung (to 16.18 and 8.97 at the third and fourth
+# steps); at 3e-6 it fell at every step (PERF.md, PR 14)
+TRAIN_LR = 3e-6
+TRAIN_LOSS_REL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+FLASH_DROP = 64
 # kernels each served path must launch with kernel_backend="cuda"
 PATH_KERNELS = {ARCH: ("decode_attention", "flash_attention_pool"),
                 MOE_ARCH: ("decode_attention", "flash_attention_pool",
@@ -542,6 +563,393 @@ def kernel_phase():
     return rows
 
 
+# -- the training flash attention ----------------------------------------------
+def flash_cases(gen):
+    """The training path's attention calls (q, K, V and d_out as the model
+    passes them: (B, S, H, hd) transposed to (B, H, S, hd) views): llama3.2-3b
+    at B 2, S 1024, 24/8 heads of 128, causal, f32 (the trainer's dtype) and
+    bf16; a 256-token window (tile skipping by the window); S 40 at hd 32."""
+    cases = []
+    for name, B, S, Hq, Hkv, hd, dtype, window in [
+            ("f32 B=2 S=1024 24/8 hd128 causal", 2, 1024, 24, 8, 128,
+             torch.float32, None),
+            ("bf16 B=2 S=1024 24/8 hd128 causal", 2, 1024, 24, 8, 128,
+             torch.bfloat16, None),
+            ("f32 B=2 S=1024 24/8 hd128 window=256", 2, 1024, 24, 8, 128,
+             torch.float32, 256),
+            ("f32 B=1 S=40 4/2 hd32 causal", 1, 40, 4, 2, 32, torch.float32,
+             None)]:
+        def mk(H):
+            return torch.randn((B, S, H, hd), generator=gen,
+                               device="cuda").to(dtype).transpose(1, 2)
+        cases.append((name, (mk(Hq), mk(Hkv), mk(Hkv), mk(Hq)),
+                      dict(window=window)))
+    return cases
+
+
+def flash_mask(Sq, Skv, window, drop=None):
+    """(Sq, Skv) valid pairs of the causal (windowed) mask; ``drop`` =
+    (lo, hi) also masks keys [lo, hi)."""
+    i = torch.arange(Sq, device="cuda")[:, None]
+    j = torch.arange(Skv, device="cuda")[None, :]
+    ok = j <= i
+    if window is not None:
+        ok &= j > i - window
+    if drop is not None:
+        ok &= (j < drop[0]) | (j >= drop[1])
+    return ok
+
+
+def flash_drop(S):
+    """The key tile a planted fault drops: FLASH_DROP keys (a quarter of a
+    short sequence) ending at the middle, seen by every later query."""
+    n = min(FLASH_DROP, S // 4)
+    return S // 2 - n, S // 2
+
+
+def flash_drop_tile(q, k, v, window):
+    """The plain forward with one key tile dropped (flash_drop): what a
+    kernel that skipped a tile it needs would compute."""
+    G = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, 1)) / q.shape[-1] ** 0.5
+    ok = flash_mask(q.shape[2], k.shape[2], window, flash_drop(k.shape[2]))
+    p = torch.softmax(torch.where(ok, s, -1e30), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.float().repeat_interleave(G, 1)).to(q.dtype)
+
+
+def flash_work(q, k, window, backward):
+    """(bytes, operations) on these inputs: the valid (query, key) pairs of
+    the mask times the query heads and rows, 4 hd operations a pair forward
+    (q k and p v), 10 hd backward (S recomputed, dP, dV, dK, dQ); forward
+    q, K, V read and out and the f32 lse written once, backward q, K, V,
+    out, d_out and the lse read and dq, dK, dV written once."""
+    B, Hq, Sq, hd = q.shape
+    pairs = int(flash_mask(Sq, k.shape[2], window).sum()) * B * Hq
+    qb, kb = nbytes(q), nbytes(k)
+    lse = B * Hq * Sq * 4
+    if backward:
+        return 3 * qb + 2 * kb + lse + qb + 2 * kb, 10 * hd * pairs
+    return qb + 2 * kb + qb + lse, 4 * hd * pairs
+
+
+def _sdpa(q, k, v, window):
+    """One PyTorch call for the function (yardstick only, never called by
+    the port): SDPA, causal, or with the windowed boolean mask."""
+    import torch.nn.functional as F
+    if window is None:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    mask = flash_mask(q.shape[2], k.shape[2], window)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          enable_gqa=True)
+
+
+def _check_row(kname, name, what, err, tol, fault=None, fault_name=""):
+    """Log and hold one output: err within tol and, where a fault was
+    planted, the fault's change beyond it."""
+    log(f"[check] {kname:20s} {name:38s} {what:4s} err {err:.2e} tol "
+        f"{tol:.2e} (err/tol {err / tol:.3f})"
+        + ("" if fault is None else
+           f"; {fault_name} {fault:.2e} ({fault / tol:.1f} x tol)"))
+    if not err <= tol:
+        raise AssertionError(f"{kname} [{name}] {what}: max abs err {err} > "
+                             f"{tol}")
+    if fault is not None and not fault > tol:
+        raise AssertionError(f"{kname} [{name}] {what}: the tolerance {tol} "
+                             f"would not catch {fault_name} ({fault})")
+
+
+def flash_kernel_phase():
+    """The training flash attention forward and backward kernels against
+    their plain versions (two bf16 ulps of the largest plain output, as
+    every kernel case; the f32 lse to 1e-5 relative), each with a planted
+    fault the limit must catch (a dropped key tile in the forward, a
+    dropped dK/dV tile in the backward), the backward bit-equal across two
+    runs, and their times beside the plain versions' and SDPA's."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    rows = {}
+    for name, (q, k, v, d_out), kw in flash_cases(gen):
+        window = kw["window"]
+        rate = PEAK_F32_OPS_S if q.dtype == torch.float32 else \
+            PEAK_BF16_OPS_S
+        # forward: output and lse
+        out, lse = ops.flash_attention(q, k, v, window=window,
+                                       return_lse=True)
+        torch.cuda.synchronize()
+        want, want_lse = ref.flash_attention_lse(q, k, v, window=window)
+        err = (out.float() - want.float()).abs().max().item()
+        tol = KERNEL_TOL_REL * want.float().abs().max().item()
+        fault = (flash_drop_tile(q, k, v, window).float()
+                 - want.float()).abs().max().item()
+        _check_row("flash_attention", name, "out", err, tol, fault,
+                   f"one dropped {FLASH_DROP}-key tile")
+        lse_err = (lse - want_lse).abs().max().item()
+        lse_tol = 1e-5 * want_lse.abs().max().item()
+        log(f"[check] flash_attention      {name:38s} lse  err "
+            f"{lse_err:.2e} tol {lse_tol:.2e}")
+        if not lse_err <= lse_tol:
+            raise AssertionError(f"flash_attention [{name}] lse: max abs err "
+                                 f"{lse_err} > {lse_tol}")
+        # backward on the plain forward's (out, lse), as the plain one
+        args = (q, k, v, want, want_lse, d_out)
+        grads = ops.flash_attention_bwd(*args, window=window)
+        again = ops.flash_attention_bwd(*args, window=window)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError(f"flash_attention_bwd [{name}]: two runs "
+                                 "differ")
+        wants = ref.flash_attention_bwd(*args, window=window)
+        lo, hi = flash_drop(k.shape[2])
+        bwd = {}
+        for what, g, w in zip(("dq", "dk", "dv"), grads, wants):
+            e = (g.float() - w.float()).abs().max().item()
+            t = KERNEL_TOL_REL * w.float().abs().max().item()
+            # the planted fault: dK/dV's rows of one key tile zeroed
+            f = None if what == "dq" else \
+                w[:, :, lo:hi].float().abs().max().item()
+            _check_row("flash_attention_bwd", name, what, e, t, f,
+                       f"one dropped {hi - lo}-key dK/dV tile")
+            bwd[what] = dict(err=e, tol=t, dropped_tile_err=f)
+        # times
+        qg, kg, vg = (x.detach().clone().requires_grad_(True)
+                      for x in (q, k, v))
+        sdpa_out = _sdpa(qg, kg, vg, window)
+        timed = dict(
+            fwd=time_ms(lambda: ops.flash_attention(q, k, v, window=window)),
+            plain_fwd=time_ms(lambda: ref.flash_attention(
+                q, k, v, window=window), reps=10),
+            sdpa_fwd=time_ms(lambda: _sdpa(q, k, v, window)),
+            bwd=time_ms(lambda: ops.flash_attention_bwd(*args,
+                                                        window=window)),
+            plain_bwd=time_ms(lambda: ref.flash_attention_bwd(
+                *args, window=window), reps=10),
+            sdpa_bwd=time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qg, kg, vg), d_out, retain_graph=True)),
+            sdpa_fwd_bwd=time_ms(lambda: torch.autograd.grad(
+                _sdpa(qg, kg, vg, window), (qg, kg, vg), d_out)))
+        del sdpa_out, qg, kg, vg
+        for kname, backward, key in (("flash_attention", False, "fwd"),
+                                     ("flash_attention_bwd", True, "bwd")):
+            moved, n_ops = flash_work(q, k, window, backward)
+            t_bytes = moved / HBM_BYTES_S * 1e3
+            t_ops = n_ops / rate * 1e3
+            bound = max(t_bytes, t_ops)
+            if backward:  # the output nearest its limit; all three kept
+                worst = bwd[max(bwd, key=lambda w: bwd[w]["err"]
+                                / bwd[w]["tol"])]
+                extra = dict(per_output=bwd, dropped_tile_err=min(
+                    bwd[w]["dropped_tile_err"] for w in ("dk", "dv")))
+            else:
+                worst = dict(err=err, tol=tol)
+                extra = dict(dropped_tile_err=fault, lse_err=lse_err)
+            ms = timed[key]
+            rows[(kname, name)] = dict(
+                max_abs_err=worst["err"], tol=worst["tol"], **extra, ms=ms,
+                plain_ms=timed[f"plain_{key}"],
+                library_ms=timed[f"sdpa_{key}"],
+                library_fwd_bwd_ms=timed["sdpa_fwd_bwd"], bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            log(f"[kernel] {kname:20s} {name:38s} kernel {ms:.4f} ms plain "
+                f"{timed[f'plain_{key}']:.4f} ms library (SDPA) "
+                f"{timed[f'sdpa_{key}']:.4f} ms (fwd+bwd "
+                f"{timed['sdpa_fwd_bwd']:.4f}) bound {bound:.4f} ms "
+                f"({rows[(kname, name)]['bound_by']}) share {bound / ms:.3f}")
+    return rows
+
+
+# -- train -------------------------------------------------------------------
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _grad_gaps(cfg, params, toks, want):
+    """The largest per-leaf relative L2 gap of the kernel path's gradients
+    (one step at ``params`` on ``toks``) to ``want``, and the loss."""
+    from repro_torch.train.train_loop import loss_and_grads
+    loss, _, grads = loss_and_grads(cfg, params, toks, kernel_backend="cuda")
+    gaps = {n: _rel_l2(g, want[n]) for n, g in grads.items()}
+    for p in params.parameters():
+        p.grad = None
+    del grads
+    return loss, gaps
+
+
+def profile_train_step(cfg, params, toks):
+    """One more step's forward and backward through the kernels (no
+    optimizer update) under ``torch.profiler``: device time by kernel, the
+    flash kernels' share, and the device's busy share of the step's wall
+    time (the profiler's own overhead included).  Device-side events only
+    (kernels, copies): CPU operator rows would count their kernels' time a
+    second time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train.train_loop import loss_and_grads
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss_and_grads(cfg, params, toks, kernel_backend="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for p in params.parameters():
+        p.grad = None
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(t for _, t in rows)
+    if busy_ms <= 0:
+        log("[profile] no device time in the trace: not measured")
+        return None
+    flash = {n: t for n, t in rows if "flash_" in n}
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    log(f"[profile] {cfg.name} train step (forward + backward) under the "
+        f"profiler: wall {wall:.3f} s, device busy {busy_ms / 1e3:.3f} s "
+        f"({busy_ms / 1e3 / wall:.3f} of wall); flash kernels "
+        f"{sum(flash.values()):.1f} ms ({sum(flash.values()) / busy_ms:.3f} "
+        "of busy)")
+    for name, t in top:
+        log(f"[profile]   {t:10.2f} ms  {name[:90]}")
+    return dict(wall_s=wall, device_busy_s=busy_ms / 1e3,
+                busy_share=busy_ms / 1e3 / wall,
+                flash_ms={n[:90]: t for n, t in flash.items()},
+                top_ms={n[:90]: t for n, t in top})
+
+
+def _dropped_dkdv(real):
+    """``ops.flash_attention_bwd`` with one dK/dV tile (flash_drop) zeroed:
+    a backward kernel that skipped a key tile."""
+    def faulty(*args, **kw):
+        dq, dk, dv = real(*args, **kw)
+        lo, hi = flash_drop(dk.shape[2])
+        dk[:, :, lo:hi] = 0
+        dv[:, :, lo:hi] = 0
+        return dq, dk, dv
+    return faulty
+
+
+def train_phase(smi):
+    """llama3.2-3b at full width in f32 (random weights, seed SEED), a
+    TRAIN_BATCH x TRAIN_SEQ batch of the synthetic corpus, remat on, f32
+    matmuls at "highest".  (a) One step's loss and gradients at fixed
+    weights and batch through the kernels against the plain path, and with
+    a planted backward fault, then one more under the profiler; (b)
+    TRAIN_STEPS AdamW steps at TRAIN_LR through the port's launcher
+    (``repro_torch.launch.train``), whose loss must fall,
+    with every kernel launch counted from 0: per step 2 forward launches a
+    layer (the forward and remat's recompute) and 1 backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    from repro_torch.train.train_loop import loss_and_grads
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    batch = next(batches(PipelineConfig(batch_size=TRAIN_BATCH,
+                                        seq_len=TRAIN_SEQ, vocab_size=259,
+                                        seed=SEED)))
+    toks = torch.from_numpy(batch["tokens"]).cuda()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[train] {ARCH}: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
+        f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    # (a) one step at fixed weights and batch: plain, kernels, faulty
+    t0 = time.perf_counter()
+    loss_p, _, want = loss_and_grads(cfg, params, toks,
+                                     kernel_backend="plain")
+    want = dict(want)
+    for p in params.parameters():
+        p.grad = None
+    ops.reset_launches()
+    loss_c, gaps = _grad_gaps(cfg, params, toks, want)
+    step_launches = dict(ops.LAUNCHES)
+    real = ops.flash_attention_bwd
+    ops.flash_attention_bwd = _dropped_dkdv(real)
+    try:
+        loss_f, fault_gaps = _grad_gaps(cfg, params, toks, want)
+    finally:
+        ops.flash_attention_bwd = real
+    del want
+    _release()
+    profile = profile_train_step(cfg, params, toks)
+    del params
+    _release()
+    loss_gap = abs(loss_c.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(gaps, key=gaps.get)
+    fault_worst = max(fault_gaps, key=fault_gaps.get)
+    log(f"[check] {ARCH} train step, kernels vs plain: loss {loss_c.item():.6f}"
+        f" vs {loss_p.item():.6f} (relative gap {loss_gap:.2e}, limit "
+        f"{TRAIN_LOSS_REL}); gradient relative L2 gap, largest {gaps[worst]:.2e}"
+        f" ({worst}), limit {TRAIN_GRAD_REL}; with one dK/dV tile dropped in "
+        f"every layer {fault_gaps[fault_worst]:.2e} ({fault_worst}, "
+        f"{fault_gaps[fault_worst] / TRAIN_GRAD_REL:.1f} x the limit); launches "
+        f"{step_launches}; {time.perf_counter() - t0:.1f} s")
+    per_step = {"flash_attention": 2 * cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers}
+    want_launches = {k: per_step.get(k, 0) for k in ops.LAUNCHES}
+    if step_launches != want_launches:
+        raise AssertionError(f"train step launches {step_launches} != "
+                             f"{want_launches}")
+    if not loss_gap <= TRAIN_LOSS_REL:
+        raise AssertionError(f"train step loss gap {loss_gap} > "
+                             f"{TRAIN_LOSS_REL}")
+    if not gaps[worst] <= TRAIN_GRAD_REL:
+        raise AssertionError(f"train step gradient {worst}: relative L2 gap "
+                             f"{gaps[worst]} > {TRAIN_GRAD_REL}")
+    if not fault_gaps[fault_worst] > TRAIN_GRAD_REL:
+        raise AssertionError(
+            f"the gradient limit {TRAIN_GRAD_REL} would not catch a dropped "
+            f"dK/dV tile ({fault_gaps[fault_worst]})")
+    # (b) TRAIN_STEPS steps through the launcher
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # count the training path's launches only
+    t0 = time.perf_counter()
+    hist = launcher.main(["--arch", ARCH, "--steps", str(TRAIN_STEPS),
+                          "--batch", str(TRAIN_BATCH), "--seq",
+                          str(TRAIN_SEQ), "--lr", str(TRAIN_LR),
+                          "--log-every", "1", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in hist]
+    ends = [h["elapsed"] for h in hist]
+    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
+    steady = statistics.median(step_s[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
+    log(f"[train] {ARCH} {TRAIN_STEPS} steps: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step s " + ", ".join(f"{x:.3f}" for x in step_s)
+        + f" (median after the first {steady:.3f} s, {tok_s:.0f} tok/s); "
+        f"peak memory {peak:.2f} GB; launches {launches}; phase {wall:.1f} s "
+        f"with init; {smi}")
+    want_launches = {k: TRAIN_STEPS * per_step.get(k, 0) for k in ops.LAUNCHES}
+    if launches != want_launches:
+        raise AssertionError(f"training launches {launches} != "
+                             f"{want_launches}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} "
+                             f"steps: {losses}")
+    _release()
+    return dict(arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                steps=TRAIN_STEPS, losses=losses, step_s=step_s,
+                median_step_s=steady, tokens_per_s=tok_s, peak_mem_gb=peak,
+                launches=launches, step_check=dict(
+                    loss_kernel=loss_c.item(), loss_plain=loss_p.item(),
+                    loss_rel_gap=loss_gap, grad_rel_l2_max=gaps[worst],
+                    grad_rel_l2_max_leaf=worst,
+                    faulty_grad_rel_l2_max=fault_gaps[fault_worst],
+                    faulty_loss=loss_f.item(), launches=step_launches),
+                profile=profile)
+
+
 # -- serve -------------------------------------------------------------------
 def _requests(flows, late=False):
     from repro_torch.core import Priority, Request
@@ -830,39 +1238,6 @@ def _routing_flips(cfg, params, f, served, chunks, i, *, dtype, kv_dtype):
             "layer")
 
 
-def profile_serve(cfg, params, flows):
-    """The same bf16 serve again under ``torch.profiler``: device busy time
-    by kernel, and its share of the (profiled, so slower) wall time."""
-    from torch.profiler import ProfilerActivity, profile
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng, _, wall, _, _, _ = serve(cfg, params, flows, device="cuda",
-                                      dtype=torch.bfloat16)
-    del eng
-    _release()
-    from torch.autograd import DeviceType
-    # device-side events only (kernels, copies): CPU operator rows would
-    # count their kernels' time a second time
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(t for _, t in rows)
-    top = sorted(rows, key=lambda r: -r[1])[:8]
-    if busy_ms <= 0:
-        log("[profile] no device time in the trace: not measured")
-        return None
-    log(f"[profile] {cfg.name} bf16 serve under the profiler: wall "
-        f"{wall:.3f} s, "
-        f"device busy {busy_ms / 1e3:.3f} s ({busy_ms / 1e3 / wall:.3f} of "
-        f"wall, idle {1 - busy_ms / 1e3 / wall:.3f}); the phase with the "
-        f"trace's processing took {time.perf_counter() - t0:.1f} s")
-    for name, t in top:
-        log(f"[profile]   {t:10.2f} ms  {name[:90]}")
-    return dict(wall_s=wall, device_busy_s=busy_ms / 1e3,
-                busy_share=busy_ms / 1e3 / wall,
-                top_ms={name[:90]: t for name, t in top})
-
-
 def _init(arch):
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -890,7 +1265,7 @@ def _init(arch):
 
 def bf16_serve(cfg, params):
     """The 8-flow bf16 serve of ``cfg``: checked, held against the plain
-    path, then profiled (the PROFILED paths).  Returns its stats."""
+    path.  Returns its stats."""
     label = f"{cfg.name} bf16"
     rng = np.random.default_rng(SEED)
     flows = make_flows(cfg, 6, OUT_TOKENS, rng)
@@ -955,8 +1330,6 @@ def bf16_serve(cfg, params):
         serve_stats.update(bf16_gate(cfg, params, eng, flows, chunks, worst))
     del eng
     _release()
-    if cfg.name in PROFILED:
-        serve_stats["profile"] = profile_serve(cfg, params, flows)
     return serve_stats
 
 
@@ -1123,7 +1496,10 @@ def main():
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
         + f" (total {time.perf_counter() - t0:.1f} s)")
     kernel_rows = kernel_phase()
+    kernel_rows.update(flash_kernel_phase())
     phase_done("kernels")
+    train_stats = train_phase(smi)
+    phase_done(f"{ARCH} train")
     serve_stats = serve_phase()
     phase_done(ARCH)
     other = {}
@@ -1132,7 +1508,8 @@ def main():
         other[arch] = full_width_serve_phase(arch)
         phase_done(arch)
     # launches of each kernel in the main-path runs, each counted from 0
-    by_path = {f"{ARCH} bf16": serve_stats["launches"],
+    by_path = {f"{ARCH} train": train_stats["launches"],
+               f"{ARCH} bf16": serve_stats["launches"],
                f"{ARCH} int8": serve_stats["int8"]["launches"],
                **{f"{a} bf16": st["launches"] for a, st in other.items()},
                **{f"{a} f32": st["f32"]["launches"]
@@ -1141,12 +1518,14 @@ def main():
                 "src/repro/kernels/decode_attention.py:79",
                 "flash_attention_pool":
                 "src/repro/kernels/flash_attention.py:174",
+                "flash_attention": "src/repro/kernels/flash_attention.py:81",
                 "moe_gemm": "src/repro/kernels/moe_gemm.py:39",
                 "rglru_scan": "src/repro/kernels/rglru_scan.py:56",
                 "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:71"}
     sources = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in replaces}
     headline = {"decode_attention": "bf16 kvl=2048",
                 "flash_attention_pool": "bf16 C=512",
+                "flash_attention": "f32 B=2 S=1024 24/8 hd128 causal",
                 "moe_gemm": "decode C=16 d=2048 f=1408",
                 "rglru_scan": "prefill B=1 S=512 W=4096",
                 "rwkv6_scan": "prefill BH=32 S=512 D=64"}
@@ -1158,6 +1537,17 @@ def main():
             shape=headline[k],
             launches=sum(n[k] for n in by_path.values()),
             launches_by_path={p: n[k] for p, n in by_path.items()}, **row))
+        if k == "flash_attention":
+            # its gradient, a kernel of the training path with no TPU
+            # counterpart (the Pallas kernel has no VJP)
+            b = "flash_attention_bwd"
+            kernels[-1]["backward"] = dict(
+                name=b, route="cuda", source=f"src/repro_torch/kernels/csrc/"
+                f"{b}.cu", replaces=replaces[k], shape=headline[k],
+                launches=sum(n[b] for n in by_path.values()),
+                launches_by_path={p: n[b] for p, n in by_path.items()},
+                **kernel_rows[(b, headline[k])])
+    log(json.dumps({"train": train_stats}))
     log(json.dumps({"serve": serve_stats}))
     for arch, st in other.items():
         log(json.dumps({f"serve {arch}": st}))

@@ -22,7 +22,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("decode_attention", "flash_attention_pool", "moe_gemm",
-           "rglru_scan", "rwkv6_scan")
+           "rglru_scan", "rwkv6_scan", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -67,6 +68,17 @@ ARGTYPES = {
         + [_P, _L, _L, _L]          # state0
         + [_P, _L, _L, _L]          # out
         + [_P]                      # state out
+        + [_P],                     # stream
+    "flash_attention_launch":
+        [_I] * 9 + [_F]
+        + [_P, _L, _L, _L] * 4      # q, k, v, out
+        + [_P]                      # lse
+        + [_P],                     # stream
+    "flash_attention_bwd_launch":
+        [_I] * 9 + [_F]
+        + [_P, _L, _L, _L] * 4      # q, k, v, d_out
+        + [_P, _P]                  # lse, delta
+        + [_P, _L, _L, _L] * 3      # dq, dk, dv
         + [_P],                     # stream
 }
 

@@ -1,12 +1,14 @@
-"""Wrappers of the CUDA kernels: the two attention kernels, the grouped
-expert GEMM of the MoE FFN, and the RG-LRU and WKV6 recurrences.
+"""Wrappers of the CUDA kernels: the serving attention kernels, the
+training attention kernel with its backward (and the autograd Function
+that joins them), the grouped expert GEMM of the MoE FFN, and the RG-LRU
+and WKV6 recurrences.
 
 A CPU tensor goes to the kernel's plain version in ``ref``; a CUDA tensor
 goes to the kernel or raises — there is no fallback.  Each wrapper checks
 device, dtype, shapes and the innermost stride, allocates the output,
 launches on PyTorch's current stream and raises if the launch was refused.
 Other strides are passed through, so pool row views, ring prefixes,
-(B, C, H, hd) -> (B, H, C, hd) transposes, the MoE dispatch buffer's
+(B, S, H, hd) -> (B, H, S, hd) transposes, the MoE dispatch buffer's
 capacity slice and the WKV6 (B, S, H, D) -> (B, H, S, D) head split need no
 copy.
 
@@ -21,7 +23,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0, "moe_gemm": 0,
-            "rglru_scan": 0, "rwkv6_scan": 0}
+            "rglru_scan": 0, "rwkv6_scan": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
 HEAD_DIMS = (32, 64, 128, 256)
 RWKV6_HEAD_DIMS = (32, 64)  # WKV6 head sizes the scan kernel takes
 DECODE_MAX_GROUP = 16  # query heads per kv head the decode kernel takes
@@ -318,3 +321,137 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
         torch.cuda.current_stream(r.device).cuda_stream)
     _launched(name, rc)
     return out, s_out
+
+
+def _check_flash(name, q, k, v, window, more=()):
+    """Shapes, dtypes, devices and strides the flash kernels take: q
+    (B, Hq, Sq, hd), K/V (B, Hkv, Skv, hd), one dtype, head_dim stride 1,
+    and ``more`` tensors shaped like q."""
+    _require(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape
+             and k.shape[0] == q.shape[0] and k.shape[3] == q.shape[3],
+             f"{name}: q {tuple(q.shape)} and K/V {tuple(k.shape)}/"
+             f"{tuple(v.shape)} are not (B, Hq, Sq, hd) and (B, Hkv, Skv, "
+             "hd)")
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    _require(all(t.device == q.device for t in (k, v, *more)),
+             f"{name}: every tensor must be on {q.device}")
+    _require(q.dtype in _DTYPE_CODE
+             and all(t.dtype == q.dtype for t in (k, v, *more)),
+             f"{name}: q, K, V (and d_out) must share float32 or bfloat16")
+    _require(all(t.shape == q.shape for t in more),
+             f"{name}: out and d_out must have q's shape {tuple(q.shape)}")
+    _require(hd in HEAD_DIMS, f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    _require(Hkv >= 1 and Hq % Hkv == 0,
+             f"{name}: {Hq} query heads are not a multiple of {Hkv} kv heads")
+    _require(min(B, Sq, Skv) >= 1 and B <= 65535 and Hq <= 65535,
+             f"{name}: empty or too many rows: q {tuple(q.shape)}")
+    _require(window is None or int(window) >= 1,
+             f"{name}: window must be None or >= 1, got {window}")
+    _require(all(t.stride(-1) == 1 for t in (q, k, v, *more)),
+             f"{name}: the head_dim axis must have stride 1")
+    return B, Hq, Sq, Skv, hd, Hq // Hkv
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, pos_base=0,
+                    return_lse=False):
+    """Contiguous causal / windowed GQA attention
+    (``repro.kernels.flash_attention.flash_attention``): q (B, Hq, Sq, hd),
+    K/V (B, Hkv, Skv, hd), float32 or bfloat16, any strides but a unit
+    head_dim stride (the model passes (B, S, H, hd) transposes).  Queries
+    and keys both start at ``pos_base``, which cancels in the masks.
+    Returns out in q's dtype and layout, and with ``return_lse`` also the
+    f32 log-sum-exp (B, Hq, Sq) of each query's scaled scores.  A query
+    with no valid key (only where Sq > Skv, or with a window) is where the
+    two references part: the oracle (and the plain version) averages V
+    over every key, the Pallas kernel over the tiles it did not skip; the
+    CUDA kernel does as the Pallas kernel, with its own 32-key tiles (0
+    where it skipped them all)."""
+    if q.device.type == "cpu":
+        out, lse = ref.flash_attention_lse(q, k, v, causal=causal,
+                                           window=window, pos_base=pos_base)
+        return (out, lse) if return_lse else out
+    name = "flash_attention"
+    _require(q.device.type == "cuda", f"{name}: no kernel for {q.device}")
+    B, Hq, Sq, Skv, hd, G = _check_flash(name, q, k, v, window)
+    out = torch.empty_like(q)  # q's strides where q is dense
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    lib = build.load(name)
+    rc = lib.flash_attention_launch(
+        _DTYPE_CODE[q.dtype], hd, B, Hq, Sq, Skv, G, int(causal),
+        int(window or 0), 1.0 / hd ** 0.5,
+        q.data_ptr(), *q.stride()[:3],
+        k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3],
+        out.data_ptr(), *out.stride()[:3],
+        None if lse is None else lse.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(name, rc)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal=True,
+                        window=None):
+    """The gradient of ``flash_attention`` (FA2 form): from its inputs, its
+    output, its f32 ``lse`` (B, Hq, Sq) and ``d_out`` (q's shape and
+    dtype), returns (dq, dk, dv) in the layouts of q, k and v.  The row sums
+    delta = rowsum(d_out o out) are one torch reduction here; every matrix
+    product is the kernel's."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, out, lse, d_out,
+                                       causal=causal, window=window)
+    name = "flash_attention_bwd"
+    _require(q.device.type == "cuda", f"{name}: no kernel for {q.device}")
+    B, Hq, Sq, Skv, hd, G = _check_flash(name, q, k, v, window,
+                                         more=(out, d_out))
+    _require(lse.shape == (B, Hq, Sq) and lse.dtype == torch.float32
+             and lse.is_contiguous() and lse.device == q.device,
+             f"{name}: lse must be contiguous float32 ({B}, {Hq}, {Sq})")
+    delta = (d_out.float() * out.float()).sum(-1)  # (B, Hq, Sq) contiguous
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = build.load(name)
+    rc = lib.flash_attention_bwd_launch(
+        _DTYPE_CODE[q.dtype], hd, B, Hq, Sq, Skv, G, int(causal),
+        int(window or 0), 1.0 / hd ** 0.5,
+        q.data_ptr(), *q.stride()[:3],
+        k.data_ptr(), *k.stride()[:3],
+        v.data_ptr(), *v.stride()[:3],
+        d_out.data_ptr(), *d_out.stride()[:3],
+        lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), *dq.stride()[:3],
+        dk.data_ptr(), *dk.stride()[:3],
+        dv.data_ptr(), *dv.stride()[:3],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _launched(name, rc)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` whose gradient is ``flash_attention_bwd``: the
+    forward saves q, K, V, out and the lse; the backward launches the
+    backward kernel (the plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        if d_out.stride(-1) != 1:
+            d_out = d_out.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, d_out,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q, k, v, *, causal=True, window=None):
+    """Differentiable ``flash_attention`` (same layouts): one forward
+    launch, and one backward launch when the graph is differentiated."""
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -4,6 +4,7 @@ card, and what the wrappers in ``ops`` run for CPU tensors).
 Same arguments, layouts and mask semantics as the Pallas kernels
 ``repro.kernels.decode_attention.decode_attention``,
 ``repro.kernels.flash_attention.flash_attention_pool``,
+``repro.kernels.flash_attention.flash_attention`` (with its gradient),
 ``repro.kernels.moe_gemm.moe_gemm``, ``repro.kernels.rglru_scan.rglru_scan``
 and ``repro.kernels.rwkv6_scan.rwkv6_scan`` (with ``ops.rwkv6_apply``'s
 initial state): for attention, int8 K/V with f32 scales, a static
@@ -78,6 +79,71 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
     s = torch.where(ok[:, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def _flash_scores(q, k, causal, window):
+    """Scaled f32 scores (B, Hq, Sq, Skv) of q (B, Hq, Sq, hd) against K
+    (B, Hkv, Skv, hd), masked to -1e30, and the validity mask (Sq, Skv).
+    Query i and key j sit at positions pos_base + i and pos_base + j, so
+    the offset cancels in the masks."""
+    B, Hq, Sq, hd = q.shape
+    Skv = k.shape[2]
+    G = Hq // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=1)) / (hd ** 0.5)
+    i = torch.arange(Sq, device=q.device)[:, None]
+    j = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok = ok & (j <= i)
+    if window is not None:
+        ok = ok & (j > i - window)
+    return torch.where(ok, s, NEG_INF), ok
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=None, pos_base=0):
+    """Contiguous GQA attention by a direct softmax
+    (``repro.kernels.ref.flash_attention_ref``), and the f32 log-sum-exp of
+    each query's scaled scores (B, Hq, Sq), from which the backward
+    recomputes P.  q (B, Hq, Sq, hd); k/v (B, Hkv, Skv, hd); Sq may differ
+    from Skv.  Returns (out (B, Hq, Sq, hd) in q.dtype, lse)."""
+    s, _ = _flash_scores(q, k, causal, window)
+    G = q.shape[1] // k.shape[1]
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                       v.float().repeat_interleave(G, dim=1))
+    return out.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, pos_base=0):
+    """``flash_attention_lse``'s output alone."""
+    return flash_attention_lse(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal=True,
+                        window=None):
+    """The gradient of ``flash_attention`` written out, without autograd,
+    as the oracle of the backward kernel: P = exp(scale q K^T - lse) on
+    valid pairs (0 off them), dV = P^T dO, dS = P o (dO V^T - delta) with
+    delta = rowsum(dO o out), dK = scale dS^T q and dV summed over the G
+    query heads of a kv head, dQ = scale dS K.  Returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / hd ** 0.5
+    s, ok = _flash_scores(q, k, causal, window)
+    p = torch.where(ok, torch.exp(s - lse.float()[..., None]), 0.0)
+    dof = d_out.float()
+    kf = k.float().repeat_interleave(G, dim=1)
+    vf = v.float().repeat_interleave(G, dim=1)
+    delta = (dof * out.float()).sum(-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta[..., None])
+    dq = scale * torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(B, Hkv, G, Skv, hd).sum(2)
+    dv = dv.reshape(B, Hkv, G, Skv, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def moe_gemm(x, w):

@@ -1,12 +1,14 @@
-"""Decoder trunk: init, prefill/extend, masked slot-pool decode.
+"""Decoder trunk: init, training forward, prefill/extend, masked slot-pool
+decode.
 
-PyTorch port of the serving half of ``repro.models.transformer`` for the
+PyTorch port of ``repro.models.transformer``.  Serving covers the
 attention family (GQA decoders with a dense or MoE FFN: llama, qwen2-moe),
 the hybrid RG-LRU + local attention family (recurrentgemma) and the
 attention-free RWKV6 family.  One code path (``extend``) covers chunked
-prefill (C tokens against an existing cache) and decode (C == 1).  Layers
-run in the reference's order: the unrolled ``head``, the repeated
-``blocks`` pattern, then the unrolled ``tail``.
+prefill (C tokens against an existing cache) and decode (C == 1).  The
+cacheless training ``forward`` covers the dense attention family (llama,
+starcoder2, qwen2.5).  Layers run in the reference's order: the unrolled
+``head``, the repeated ``blocks`` pattern, then the unrolled ``tail``.
 
 Differences from the reference, all forced by the frameworks:
 
@@ -23,15 +25,18 @@ Differences from the reference, all forced by the frameworks:
   bound but inactive row (mid-prefill, or preempted) would corrupt it.
 
 ``kernel_backend`` mirrors the reference's ``"xla" | "pallas"`` knob as
-``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention, the MoE
-expert products and the RG-LRU / WKV6 recurrences through
-``repro_torch.kernels.ops``, whose wrappers launch the CUDA kernels on CUDA
-tensors and fall to their plain versions only for CPU tensors; ``"plain"``
-runs ``models.attention``, ``torch.einsum`` and ``models.ssm``'s scans.
+``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention (in
+training the differentiable ``ops.flash_attention_train``, whose backward
+is a kernel too), the MoE expert products and the RG-LRU / WKV6
+recurrences through ``repro_torch.kernels.ops``, whose wrappers launch the
+CUDA kernels on CUDA tensors and fall to their plain versions only for CPU
+tensors; ``"plain"`` runs ``models.attention`` (differentiated by
+autograd in training), ``torch.einsum`` and ``models.ssm``'s scans.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
@@ -397,6 +402,111 @@ def _run_trunk(cfg, layers, x, cache, ctx):
     return x
 
 
+# ============================ training forward ==============================
+def check_trainable(cfg) -> None:
+    """``forward`` covers the dense attention family; every other family
+    raises, naming the ROADMAP.md item that ports its training."""
+    check_supported(cfg)
+    head, pattern, _, tail = layout(cfg)
+    if cfg.is_moe or set(head + pattern + tail) != {"attn"}:
+        raise NotImplementedError(
+            f"{cfg.name}: training of the MoE, RG-LRU and RWKV6 families is "
+            "not ported yet: their kernels (moe_gemm, rglru_scan, "
+            "rwkv6_scan) have no backward (ROADMAP.md queue 1, item 11)")
+
+
+def _attn_mix_train(cfg, ap, x, ctx):
+    """Cacheless causal (or windowed) GQA self-attention over the whole
+    sequence (``repro.models.transformer._attn_mix_train``)."""
+    B, S, d = x.shape
+    window = ctx.get("window") or cfg.sliding_window
+    pos = ctx["positions"]  # (S,)
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = x @ ap["wq"]
+    k = x @ ap["wk"]
+    v = x @ ap["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+    q = apply_rope(q.reshape(B, S, Hq, hd), pos, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, Hkv, hd), pos, cfg.rope_theta)
+    v = v.reshape(B, S, Hkv, hd)
+    if ctx["kernel_backend"] == "cuda":
+        # (B, S, H, hd) -> (B, H, S, hd) are free strided views here, and the
+        # output comes back in q's layout
+        out = kops.flash_attention_train(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window).transpose(1, 2)
+    else:
+        out = chunked_attention(q, k, v, causal=True, window=window,
+                                pos_q=pos, pos_kv=pos, q_chunk=ctx["q_chunk"],
+                                kv_chunk=ctx["kv_chunk"])
+    return out.reshape(B, S, Hq * hd) @ ap["wo"]
+
+
+def _apply_block_train(cfg, lp, x, ctx):
+    """One residual attention block over (B, S, d), no cache."""
+    h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
+    x = x + _attn_mix_train(cfg, lp["attn"], h, ctx)
+    h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
+    return x + mlp(h2, lp["ffn"], cfg.mlp_gated)
+
+
+def _unbind(tree, R):
+    """The R per-repeat trees of a stacked tree, each leaf unbound once, so
+    a stacked leaf's gradient is one stack of its per-layer gradients (a
+    view per layer would add a full-size zero-padded gradient per
+    layer)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.unbind(0)
+    parts = {k: _unbind(tree[k], R) for k in tree.keys()}
+    return [{k: p[r] for k, p in parts.items()} for r in range(R)]
+
+
+def _train_layers(cfg, params):
+    """Every layer's parameter tree in execution order (attention layers
+    all: ``check_trainable``)."""
+    head, pattern, repeats, tail = layout(cfg)
+    stacked = [_unbind(params["blocks"][str(pi)], repeats)
+               for pi in range(len(pattern))]
+    return ([params["head"][str(i)] for i in range(len(head))]
+            + [stacked[pi][r] for r in range(repeats)
+               for pi in range(len(pattern))]
+            + [params["tail"][str(i)] for i in range(len(tail))])
+
+
+def _run_trunk_train(cfg, params, x, ctx, *, remat):
+    """Every layer in order; with ``remat`` each layer is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
+    scanned layer group in ``jax.checkpoint``: only the layer inputs are
+    kept, and each layer's forward runs again in the backward."""
+    for lp in _train_layers(cfg, params):
+        if remat:
+            x = checkpoint(_apply_block_train, cfg, lp, x, ctx,
+                           use_reentrant=False)
+        else:
+            x = _apply_block_train(cfg, lp, x, ctx)
+    return x
+
+
+def forward(cfg, params, tokens, *, window=None, remat=True, q_chunk=512,
+            kv_chunk=512, kernel_backend="cuda"):
+    """Training forward: full-sequence logits (B, S, V) and the MoE aux loss
+    (zero: this slice's families have no router), mirroring
+    ``repro.models.transformer.forward``.  tokens: (B, S) int.  The
+    parameters' ``requires_grad`` decides what autograd tracks."""
+    check_trainable(cfg)
+    _check_backend(kernel_backend)
+    x = embed_tokens(tokens, params["embed"]["w"])
+    S = x.shape[1]
+    ctx = {"positions": torch.arange(S, device=x.device), "window": window,
+           "q_chunk": q_chunk, "kv_chunk": kv_chunk,
+           "kernel_backend": kernel_backend}
+    x = _run_trunk_train(cfg, params, x, ctx, remat=remat)
+    x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+    return lm_logits(x, params), torch.zeros((), dtype=torch.float32,
+                                             device=x.device)
+
+
 # ============================ public entry points ===========================
 def init_cache(cfg, params, batch, max_len, dtype=torch.bfloat16, *,
                window=None, kv_dtype=None, device=None):
@@ -520,6 +630,6 @@ def decode_run(cfg, params, cache, tokens, active, n_steps: int,
     return torch.stack(block), toks, cache
 
 
-__all__ = ["layout", "check_supported", "init_params", "init_cache",
-           "extend", "extend_row", "decode_step", "decode_run",
-           "layer_views", "KERNEL_BACKENDS"]
+__all__ = ["layout", "check_supported", "check_trainable", "init_params",
+           "init_cache", "forward", "extend", "extend_row", "decode_step",
+           "decode_run", "layer_views", "KERNEL_BACKENDS"]

@@ -1,7 +1,9 @@
 """PyTorch port on the card: the CUDA kernels (attention up to head_dim
-256, the MoE grouped expert GEMM, the RG-LRU and WKV6 scans) against their
-plain versions, and the tiny serving paths (dense, MoE, RG-LRU hybrid,
-RWKV6) through the kernels against the plain path.  Every test here is
+256, the training flash attention and its backward, the MoE grouped expert
+GEMM, the RG-LRU and WKV6 scans) against their plain versions, the tiny
+serving paths (dense, MoE, RG-LRU hybrid, RWKV6) through the kernels
+against the plain path, and a tiny training step's loss and gradients
+through the kernels against the plain path.  Every test here is
 marked ``cuda`` and skips without an NVIDIA GPU;
 on the card run them with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the file imports no JAX).
@@ -282,3 +284,108 @@ def test_tiny_serve_through_kernels_matches_plain_path(cuda, arch):
                             else set()), launched
         out[backend] = [eng.output_tokens(i) for i in range(3)]
     assert out["cuda"] == out["plain"]
+
+
+
+# -- the training flash attention and its backward ----------------------------
+#   (B, Hq, Hkv, Sq, Skv, hd, window): G 1, 3 and 8, head_dim 32 to 256,
+#   ragged S (not a multiple of the 32-row tiles), S 40, a window, Sq != Skv
+#   (every query with a valid key: see ops.flash_attention)
+FLASH_CUDA_CASES = [(2, 4, 4, 96, 96, 32, None), (2, 6, 2, 300, 300, 64, None),
+                    (1, 24, 8, 200, 200, 128, None), (1, 8, 1, 40, 40, 32, None),
+                    (2, 6, 2, 257, 257, 128, 64), (1, 4, 2, 130, 130, 256, 48),
+                    (1, 6, 2, 40, 72, 64, None), (1, 6, 2, 72, 40, 64, 40)]
+
+
+def _flash_case(case, dtype, device, seed=0):
+    """q, K, V and d_out as the model passes them: (B, S, H, hd) tensors
+    transposed to (B, H, S, hd) views."""
+    B, Hq, Hkv, Sq, Skv, hd, _ = case
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    mk = lambda S, H: torch.randn((B, S, H, hd), generator=g,  # noqa: E731
+                                  device=device).to(dtype).transpose(1, 2)
+    return mk(Sq, Hq), mk(Skv, Hkv), mk(Skv, Hkv), mk(Sq, Hq)
+
+
+@pytest.mark.parametrize("case", FLASH_CUDA_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda, case, dtype):
+    """The forward (output and lse) and the backward (dq, dk, dv) kernels
+    against their plain versions on the same inputs; the backward is
+    bit-equal across two runs (no atomics)."""
+    window = case[-1]
+    q, k, v, d_out = _flash_case(case, dtype, cuda)
+    before = dict(ops.LAUNCHES)
+    out, lse = ops.flash_attention(q, k, v, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    want, want_lse = ref.flash_attention_lse(q, k, v, window=window)
+    assert out.dtype == dtype and out.stride() == q.stride()
+    _assert_close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    # the backward on the plain forward's (out, lse), as the plain one
+    grads = ops.flash_attention_bwd(q, k, v, want, want_lse, d_out,
+                                    window=window)
+    again = ops.flash_attention_bwd(q, k, v, want, want_lse, d_out,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    wants = ref.flash_attention_bwd(q, k, v, want, want_lse, d_out,
+                                    window=window)
+    for got, rep, w, x in zip(grads, again, wants, (q, k, v)):
+        assert got.dtype == dtype and got.stride() == x.stride()
+        assert torch.equal(got, rep)
+        _assert_close(got, w, dtype)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 4, 8, 32), device=cuda)
+    k = torch.zeros((1, 2, 8, 32), device=cuda)
+    q48, k48 = q.new_zeros((1, 4, 8, 48)), k.new_zeros((1, 2, 8, 48))
+    with pytest.raises(ValueError, match="head_dim 48"):
+        ops.flash_attention(q48, k48, k48)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q[:, :3], k, k)
+    with pytest.raises(ValueError, match="share"):
+        ops.flash_attention(q, k.bfloat16(), k)
+    qt = q.new_zeros((1, 4, 32, 8)).transpose(2, 3)  # head_dim stride 8
+    kt = k.new_zeros((1, 2, 32, 8)).transpose(2, 3)
+    with pytest.raises(ValueError, match="stride 1"):
+        ops.flash_attention(qt, kt, kt)
+    with pytest.raises(ValueError, match="lse"):
+        ops.flash_attention_bwd(q, k, k, q, torch.zeros((1, 4, 8),
+                                                        device=cuda).half(),
+                                q)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-7b"])
+def test_tiny_train_step_through_kernels_matches_plain_path(cuda, arch):
+    """A tiny f32 model's loss and gradients with kernel_backend="cuda"
+    (each layer: one forward launch, one more in remat's recompute, one
+    backward launch) against the plain path on the same card."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import init_params
+    from repro_torch.train.train_loop import loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_tiny_config(arch)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 81))).to(cuda)
+    runs = {}
+    for backend in ("cuda", "plain"):
+        before = dict(ops.LAUNCHES)
+        loss, _, grads = loss_and_grads(cfg, params, toks,
+                                        kernel_backend=backend)
+        n = {k: ops.LAUNCHES[k] - before[k] for k in
+             ("flash_attention", "flash_attention_bwd")}
+        want = (2 * cfg.num_layers, cfg.num_layers) if backend == "cuda" \
+            else (0, 0)
+        assert (n["flash_attention"], n["flash_attention_bwd"]) == want, n
+        runs[backend] = (loss, {k: g.clone() for k, g in grads.items()})
+    (lc, gc), (lp, gp) = runs["cuda"], runs["plain"]
+    assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))
+    for name, g in gp.items():
+        rel = (gc[name] - g).norm() / g.norm()
+        assert rel <= 1e-4, (name, float(rel))

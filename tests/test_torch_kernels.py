@@ -7,6 +7,7 @@ Inputs are made with numpy from a seed and handed to both frameworks.
 Tolerance for attention: 2e-5 in f32 — the reference's own
 kernel-vs-oracle tolerance (tests/test_kernels.py); only the summation
 order differs.  The scans' tolerances stand beside their tests."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,3 +236,131 @@ def test_scan_wrappers_raise_off_cpu_without_kernel():
     r = torch.zeros((2, 4, 32))
     with pytest.raises(ValueError, match=r"\(B, H, S, D\)"):
         ops.rwkv6_scan(r, r, r, r, r[:, :1])
+
+
+# -- contiguous flash attention and its gradient ------------------------------
+# The plain versions (what ops.flash_attention / ops.flash_attention_bwd run
+# for CPU tensors, and what the CUDA kernels are held to on the card) against
+# the Pallas flash_attention in interpret mode and repro.kernels.ref's
+# oracle, on the reference's own cases (tests/test_kernels.py): 2e-5 in f32
+# (summation order only), 2e-2 in bf16 (the reference's bf16 tolerance:
+# each side rounds its f32 result to bf16 once).  The gradient is held to
+# jax.vjp of the oracle, the autograd Function to torch autograd through
+# models.attention.chunked_attention.
+#   name: (B, Hq, Hkv, S, hd, dtype, window, Pallas blocks)
+FLASH_CASES = {
+    "mha": (1, 4, 4, 128, 64, "f32", None, 64),
+    "gqa2": (2, 4, 2, 256, 64, "f32", None, 64),
+    "mqa": (1, 8, 1, 128, 128, "f32", None, 64),
+    "bf16": (1, 4, 2, 128, 64, "bf16", None, 64),
+    "window32": (1, 2, 2, 128, 64, "f32", 32, 64),
+    "window64": (1, 2, 2, 128, 64, "f32", 64, 64),
+    "s40_hd32": (1, 4, 2, 40, 32, "f32", None, 128),
+}
+
+
+def _flash_inputs(case, seed=0):
+    B, Hq, Hkv, S, hd, dt, window, blk = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v, d_out = (rng.standard_normal(sh, dtype=np.float32) for sh in
+                      [(B, Hq, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd),
+                       (B, Hq, S, hd)])
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dt == "bf16" else \
+        (jnp.float32, torch.float32)
+    jx = [jnp.asarray(x, jdt) for x in (q, k, v, d_out)]
+    tx = [t.to(tdt) for t in _t(q, k, v, d_out)]
+    tol = 2e-2 if dt == "bf16" else TOL
+    return jx, tx, window, blk, tol
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_plain_matches_pallas_and_oracle(case):
+    (jq, jk, jv, _), (tq, tk, tv, _), window, blk, tol = _flash_inputs(case)
+    pallas = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                  block_q=blk, block_k=blk)
+    oracle = jref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+    before = dict(ops.LAUNCHES)
+    out, lse = ops.flash_attention(tq, tk, tv, window=window,
+                                   return_lse=True)
+    assert ops.LAUNCHES == before  # CPU tensors never reach a kernel
+    assert out.dtype == tq.dtype and lse.dtype == torch.float32
+    _close(out.float(), pallas, tol)
+    _close(out.float(), oracle, tol)
+    # the lse is the log-normaliser of the scaled, masked scores
+    hd = tq.shape[-1]
+    G = tq.shape[1] // tk.shape[1]
+    sc = torch.einsum("bhqd,bhkd->bhqk", tq.float(),
+                      tk.float().repeat_interleave(G, 1)) / hd ** 0.5
+    S = tq.shape[2]
+    i, j = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    ok = (j <= i) & ((j > i - window) if window else True)
+    want = torch.logsumexp(sc.masked_fill(~ok, float("-inf")), -1)
+    _close(lse, want, 1e-5)
+
+
+def test_flash_plain_takes_unequal_lengths_and_pos_base():
+    """Sq != Skv, as the oracle takes them: query i and key j at pos_base + i
+    and pos_base + j, so pos_base cancels."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 6, 24, 32), dtype=np.float32)
+    k, v = (rng.standard_normal((2, 2, 40, 32), dtype=np.float32)
+            for _ in range(2))
+    for window in (None, 8):
+        want = jref.flash_attention_ref(*map(jnp.asarray, (q, k, v)),
+                                        causal=True, window=window,
+                                        pos_base=5)
+        got = ops.flash_attention(*_t(q, k, v), window=window, pos_base=5)
+        _close(got, want, TOL)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_bwd_plain_matches_jax_vjp(case):
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo), window, _, tol = \
+        _flash_inputs(case, seed=1)
+    _, vjp = jax.vjp(lambda q, k, v: jref.flash_attention_ref(
+        q, k, v, causal=True, window=window), jq, jk, jv)
+    want = vjp(jdo)
+    out, lse = ops.flash_attention(tq, tk, tv, window=window,
+                                   return_lse=True)
+    got = ops.flash_attention_bwd(tq, tk, tv, out, lse, tdo, window=window)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        # relative to the gradient's own scale: dq, dk and dv differ in size
+        scale = float(np.abs(np.asarray(w, np.float32)).max())
+        np.testing.assert_allclose(np.asarray(g.float()),
+                                   np.asarray(w, np.float32), rtol=tol,
+                                   atol=tol * scale)
+
+
+@pytest.mark.parametrize("case", ["gqa2", "window32", "s40_hd32"])
+def test_flash_train_autograd_matches_chunked_attention(case):
+    """ops.flash_attention_train on CPU tensors in the model's (B, S, H,
+    hd) layout (transposed views) against torch autograd through the
+    plain model attention: outputs and the three input gradients."""
+    _, (tq, tk, tv, tdo), window, _, _ = _flash_inputs(case, seed=2)
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+               for t in (tq, tk, tv))
+    out = ops.flash_attention_train(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), window=window)
+    out = out.transpose(1, 2)
+    (out * tdo.transpose(1, 2)).sum().backward()
+    got = [out.detach()] + [t.grad for t in (q, k, v)]
+    q2, k2, v2 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    ref_out = TA.chunked_attention(q2, k2, v2, causal=True, window=window,
+                                   q_chunk=32, kv_chunk=32)
+    (ref_out * tdo.transpose(1, 2)).sum().backward()
+    want = [ref_out.detach()] + [t.grad for t in (q2, k2, v2)]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+
+
+def test_flash_wrappers_raise_off_cpu_without_kernel():
+    """Only a CPU tensor reaches the plain versions: any other device must
+    reach a kernel or raise (here: no kernel for the meta device)."""
+    q = torch.empty((1, 4, 8, 32), device="meta")
+    k = torch.empty((1, 2, 8, 32), device="meta")
+    lse = torch.empty((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.flash_attention_bwd(q, k, k, q, lse, q)
