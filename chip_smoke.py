@@ -18,8 +18,10 @@ path: 60 routed experts through the grouped expert GEMM kernel),
 attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
 to the plain path in an f32 serve, and its bf16 serve beside serves with a
-planted WKV fault: see F32_TOKEN_CHECK), and prints the kernel table as
-JSON and, as its last line, ``{"ok": true, "device": {...}}``.  Any failed phase
+planted WKV fault: see F32_TOKEN_CHECK), profiles one ``llama3.2-3b``
+prefill chunk and one decode segment (the serving attention kernels' share
+of device time), and prints the kernel table as JSON and, as its last
+line, ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
 is visible or when run outside the repository.  Imports no JAX.
 """
@@ -75,10 +77,10 @@ LOGIT_MARGIN = 0.25
 # whose power is shown by serves with a planted WKV fault (WKV_FAULTS), and
 # its served tokens to LOGIT_MARGIN itself in an f32 serve
 F32_TOKEN_CHECK = (RWKV_ARCH,)
-# the run repeated under torch.profiler: this slice's path, the training
-# step.  The serves skip their profiled repeat (the trace's processing took
-# 88-189 s a serve on the H100, PERF.md, PR 13), which keeps the script near
-# half its time limit
+# the runs under torch.profiler: one training step, and one llama3.2-3b
+# prefill chunk and decode segment.  The serves skip their profiled repeat
+# (the trace's processing took 88-189 s a serve on the H100, PERF.md, PR
+# 13), which keeps the script near half its time limit
 # the training phase: llama3.2-3b at full width in f32, a batch of
 # TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS AdamW steps through the
 # launcher.  One step at fixed weights and batch through the kernels is held
@@ -183,30 +185,41 @@ def _kv(gen, shape, dtype, int8):
 
 
 def decode_cases(gen):
-    """The C == 1 calls of the serving paths: B=16 rows, a 2048-slot ring
-    read to kv_limit 1024 or 2048, bf16 or int8; 24/8 heads of 128
-    (llama3.2-3b, G = 3), 16/16 of 128 (qwen2-moe-a2.7b, G = 1) or 16/1 of
-    256 in a 2048-token window (recurrentgemma-9b, G = 16)."""
-    B, S = 16, MAX_LEN
+    """The C == 1 calls of the serving paths: B=16 rows (and B=4, B=1: the
+    most splits), a 2048-slot ring read to kv_limit 1024 or 2048 (or 64, the
+    elastic kv_limit of short rows: one tile), bf16 or int8; 24/8 heads of
+    128 (llama3.2-3b, G = 3), 16/16 of 128 (qwen2-moe-a2.7b, G = 1) or 16/1
+    of 256 in a 2048-token window (recurrentgemma-9b, G = 16)."""
+    S = MAX_LEN
     cases = []
-    for name, kvl, int8, window, wrap, rows, (Hq, Hkv, hd) in [
-            ("bf16 kvl=2048", 2048, False, None, None, None, (24, 8, 128)),
-            ("bf16 kvl=1024", 1024, False, None, None, None, (24, 8, 128)),
-            ("int8 kvl=2048", 2048, True, None, None, None, (24, 8, 128)),
-            ("int8 kvl=1024", 1024, True, None, None, None, (24, 8, 128)),
-            ("bf16 window=256", 2048, False, 256, None, None, (24, 8, 128)),
-            ("bf16 wrapped ring", 2048, False, None, 3000, None,
+    for name, B, kvl, int8, window, wrap, rows, (Hq, Hkv, hd) in [
+            ("bf16 kvl=2048", 16, 2048, False, None, None, None,
              (24, 8, 128)),
-            ("bf16 row view 2:10 x 1024", 1024, False, None, None, (2, 10),
+            ("bf16 kvl=1024", 16, 1024, False, None, None, None,
              (24, 8, 128)),
-            ("G=1 bf16 kvl=2048", 2048, False, None, None, None,
+            ("int8 kvl=2048", 16, 2048, True, None, None, None,
+             (24, 8, 128)),
+            ("int8 kvl=1024", 16, 1024, True, None, None, None,
+             (24, 8, 128)),
+            ("bf16 window=256", 16, 2048, False, 256, None, None,
+             (24, 8, 128)),
+            ("bf16 wrapped ring", 16, 2048, False, None, 3000, None,
+             (24, 8, 128)),
+            ("bf16 row view 2:10 x 1024", 16, 1024, False, None, None,
+             (2, 10), (24, 8, 128)),
+            ("bf16 B=1 kvl=2048", 1, 2048, False, None, None, None,
+             (24, 8, 128)),
+            ("bf16 B=4 kvl=2048", 4, 2048, False, None, None, None,
+             (24, 8, 128)),
+            ("bf16 kvl=64", 16, 64, False, None, None, None, (24, 8, 128)),
+            ("G=1 bf16 kvl=2048", 16, 2048, False, None, None, None,
              (16, 16, 128)),
-            ("G=1 int8 kvl=2048", 2048, True, None, None, None,
+            ("G=1 int8 kvl=2048", 16, 2048, True, None, None, None,
              (16, 16, 128)),
-            ("hd256 G=16 bf16 kvl=2048 window=2048", 2048, False, 2048, None,
-             None, (16, 1, 256)),
-            ("hd256 G=16 bf16 kvl=1024 window=2048", 1024, False, 2048, None,
-             None, (16, 1, 256))]:
+            ("hd256 G=16 bf16 kvl=2048 window=2048", 16, 2048, False, 2048,
+             None, None, (16, 1, 256)),
+            ("hd256 G=16 bf16 kvl=1024 window=2048", 16, 1024, False, 2048,
+             None, None, (16, 1, 256))]:
         k, ks = _kv(gen, (B, S, Hkv, hd), torch.bfloat16, int8)
         v, vs = _kv(gen, (B, S, Hkv, hd), torch.bfloat16, int8)
         q = torch.randn((B, Hq, hd), generator=gen,
@@ -228,6 +241,15 @@ def decode_cases(gen):
                   v_scale=None if vs is None else vs)
         cases.append((name, args, kw, int8))
     return cases
+
+
+def decode_splits_of(args, kw):
+    """The split count the decode wrapper takes for these inputs."""
+    from repro_torch.kernels import ops
+    q, k = args[0], args[1]
+    S = kw["kv_limit"] or k.shape[1]
+    return ops.decode_splits(q.shape[0], k.shape[2], S, q.shape[2],
+                             q.shape[1] // k.shape[2], k.element_size())
 
 
 def decode_work(args, kw):
@@ -260,9 +282,9 @@ def decode_drop_tile(args):
 
 def pool_cases(gen):
     """The C > 1 calls of the serving paths: one row, a C = 128 or 512
-    chunk against a 2048-slot ring; 24 query heads on 8 kv heads of 128
-    (G = 3), 16 on 16 (G = 1), or 16 on 1 of 256 in a 2048-token window
-    (G = 16)."""
+    chunk (or 16 and 32, the pow-2 sub-chunks a prompt's tail runs as)
+    against a 2048-slot ring; 24 query heads on 8 kv heads of 128 (G = 3),
+    16 on 16 (G = 1), or 16 on 1 of 256 in a 2048-token window (G = 16)."""
     S = MAX_LEN
     cases = []
     for name, C, int8, window, wrap, strided, (Hq, Hkv, hd) in [
@@ -276,6 +298,8 @@ def pool_cases(gen):
              (24, 8, 128)),
             ("bf16 C=128 row view of 4-row pool", 128, False, None, None,
              True, (24, 8, 128)),
+            ("bf16 C=32", 32, False, None, None, False, (24, 8, 128)),
+            ("bf16 C=16", 16, False, None, None, False, (24, 8, 128)),
             ("G=1 bf16 C=512", 512, False, None, None, False, (16, 16, 128)),
             ("G=1 bf16 C=128", 128, False, None, None, False, (16, 16, 128)),
             ("hd256 G=16 bf16 C=512 window=2048", 512, False, 2048, None,
@@ -555,11 +579,16 @@ def kernel_phase():
                 max_abs_err=err, tol=tol, dropped_tile_err=fault, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+            extra = ""
+            if kname == "decode_attention":
+                n_split = decode_splits_of(args, kw)
+                rows[(kname, name)]["n_split"] = n_split
+                extra = f" n_split {n_split}"
             lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f}"
             log(f"[kernel] {kname:20s} {name:34s} kernel {ms:.4f} ms plain "
                 f"{plain_ms:.4f} ms library {lib_txt} ms bound "
                 f"{bound:.4f} ms ({rows[(kname, name)]['bound_by']}) "
-                f"share {bound / ms:.3f}")
+                f"share {bound / ms:.3f}{extra}")
     return rows
 
 
@@ -778,6 +807,24 @@ def _grad_gaps(cfg, params, toks, want):
     return loss, gaps
 
 
+def _device_times(fn):
+    """Run ``fn`` once under ``torch.profiler``: (wall s, device-side rows
+    (kernel name, ms)).  Device events only: CPU operator rows would count
+    their kernels' time a second time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+
+
 def profile_train_step(cfg, params, toks):
     """One more step's forward and backward through the kernels (no
     optimizer update) under ``torch.profiler``: device time by kernel, the
@@ -785,20 +832,11 @@ def profile_train_step(cfg, params, toks):
     time (the profiler's own overhead included).  Device-side events only
     (kernels, copies): CPU operator rows would count their kernels' time a
     second time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.train_loop import loss_and_grads
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        loss_and_grads(cfg, params, toks, kernel_backend="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    wall, rows = _device_times(
+        lambda: loss_and_grads(cfg, params, toks, kernel_backend="cuda"))
     for p in params.parameters():
         p.grad = None
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(t for _, t in rows)
     if busy_ms <= 0:
         log("[profile] no device time in the trace: not measured")
@@ -816,6 +854,68 @@ def profile_train_step(cfg, params, toks):
                 busy_share=busy_ms / 1e3 / wall,
                 flash_ms={n[:90]: t for n, t in flash.items()},
                 top_ms={n[:90]: t for n, t in top})
+
+
+# the serving attention kernels' device-side names (decode: the split kernel
+# and its merge; prefill: the tensor-core and the f32 pool kernels)
+ATTENTION_KERNELS = ("decode_mma_kernel", "decode_kernel", "merge_kernel",
+                     "pool_mma_kernel", "flash_pool_kernel")
+
+
+def profile_serving_attention(cfg, params):
+    """Device time by kernel, and the attention kernels' share of it, in
+    one full-width prefill chunk (C 512 of one row, the ring holding 1536
+    earlier positions) and one 8-step fused decode segment at B 16 (rows
+    at 1024 positions, kv_limit 2048), each run once under the profiler
+    after a warm-up, through ``extend`` and ``decode_run`` with
+    ``kernel_backend="cuda"``."""
+    from repro_torch.models import decode_run, extend, init_cache
+    rng = np.random.default_rng(SEED + 2)
+
+    def toks(*shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
+    one = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
+    prompt = toks(1, 2048)
+    for i in range(3):
+        extend(cfg, params, one, prompt[:, 512 * i:512 * (i + 1)])
+    warm = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
+    extend(cfg, params, warm, prompt[:, :512])
+    del warm
+    pool = init_cache(cfg, params, POOL, MAX_LEN, torch.bfloat16)
+    rows = toks(POOL, 1024)
+    extend(cfg, params, pool, rows[:, :512])
+    extend(cfg, params, pool, rows[:, 512:])
+    last = rows[:, -1].to(torch.int32)
+    active = torch.ones(POOL, dtype=torch.bool, device="cuda")
+    decode_run(cfg, params, pool, last, active, 1, kv_limit=MAX_LEN)
+    out = {}
+    for label, fn in [
+            ("prefill C=512", lambda: extend(cfg, params, one,
+                                             prompt[:, 1536:])),
+            (f"decode B={POOL} x 8 steps", lambda: decode_run(
+                cfg, params, pool, last, active, 8, kv_limit=MAX_LEN))]:
+        wall, times = _device_times(fn)
+        busy = sum(t for _, t in times)
+        if busy <= 0:
+            log(f"[profile] {cfg.name} {label}: no device time in the trace: "
+                "not measured")
+            continue
+        attn = {n[:90]: t for n, t in times
+                if any(k in n for k in ATTENTION_KERNELS)}
+        top = sorted(times, key=lambda r: -r[1])[:6]
+        log(f"[profile] {cfg.name} {label}: wall {wall * 1e3:.2f} ms, device "
+            f"busy {busy:.2f} ms ({busy / 1e3 / wall:.3f} of wall); attention "
+            f"kernels {sum(attn.values()):.3f} ms "
+            f"({sum(attn.values()) / busy:.3f} of busy)")
+        for name, t in top:
+            log(f"[profile]   {t:10.3f} ms  {name[:90]}")
+        out[label] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                          attention_ms=attn,
+                          attention_share=sum(attn.values()) / busy,
+                          top_ms={n[:90]: t for n, t in top})
+    del one, pool
+    _release()
+    return out
 
 
 def _dropped_dkdv(real):
@@ -1421,7 +1521,8 @@ def bf16_gate(cfg, params, eng, flows, chunks, worst):
 
 
 def serve_phase():
-    """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool."""
+    """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool, then
+    the serving attention's profile (profile_serving_attention)."""
     cfg, params = _init(ARCH)
     serve_stats = bf16_serve(cfg, params)
     flows8 = make_flows(cfg, 2, 16, np.random.default_rng(SEED + 1))
@@ -1440,6 +1541,9 @@ def serve_phase():
     serve_stats["int8"] = dict(flows=len(flows8), wall_s=wall8,
                                launches=launches8, plain_exact=exact8,
                                plain_total=total8, plain_worst_gap=worst8)
+    del eng8
+    _release()
+    serve_stats["profile"] = profile_serving_attention(cfg, params)
     return serve_stats
 
 

@@ -35,20 +35,22 @@ _F = ctypes.c_float
 # ctypes never cuts a 64-bit address to an int)
 ARGTYPES = {
     "decode_attention_launch":
-        [_I] * 8 + [_F]
+        [_I] * 9 + [_F]
         + [_P, _L, _L]              # q
         + [_P, _L, _L, _L] * 2      # k, v
         + [_P, _L, _L, _L] * 2      # k_scale, v_scale
         + [_P, _L, _L]              # slot_pos
         + [_P, _L]                  # cur_pos
         + [_P, _L, _L]              # out
+        + [_P, _P, _P]              # partials m, l, acc
         + [_P],                     # stream
     "flash_attention_pool_launch":
-        [_I] * 9 + [_F]
+        [_I] * 10 + [_F]
         + [_P, _L, _L, _L] * 3      # q, k, v
         + [_P, _L, _L, _L] * 2      # k_scale, v_scale
         + [_P, _L, _L] * 2          # pos_q, pos_kv
         + [_P, _L, _L, _L]          # out
+        + [_P, _P, _P]              # partials m, l, acc
         + [_P],                     # stream
     "moe_gemm_launch":
         [_I] * 5

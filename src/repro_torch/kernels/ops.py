@@ -84,18 +84,36 @@ def _limit(S: int, kv_limit) -> int:
     return S if kv_limit is None else max(1, min(int(kv_limit), S))
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
-                     k_scale=None, v_scale=None, kv_limit=None):
-    """Single-token GQA attention over the ring: q (B, Hq, hd); caches
-    (B, S, Hkv, hd) in q's dtype, or int8 with ``k_scale``/``v_scale``
-    (B, S, Hkv) f32; slot_pos (B, S) and cur_pos (B,) int32.  Reads the
-    first ``kv_limit`` slots.  Returns (B, Hq, hd)."""
-    if q.device.type == "cpu":
-        return ref.decode_attention(q, k_cache, v_cache, slot_pos, cur_pos,
-                                    window=window, k_scale=k_scale,
-                                    v_scale=v_scale, kv_limit=kv_limit)
-    name = "decode_attention"
-    _require(q.device.type == "cuda", f"{name}: no kernel for {q.device}")
+# the split-KV decode kernel (csrc/decode_attention.cu): a split is a run
+# of whole DECODE_TILE-slot tiles (ref.split_bounds)
+DECODE_TILE = 64
+DECODE_SMS = 132  # SMs of an H100 SXM
+# the most the partials' f32 traffic (written, then read by the merge) may
+# add to the K/V bytes of a call: at recurrentgemma-9b's decode shape it
+# allows 8 splits (0.126 of the K/V bytes), the fastest count measured
+# there (PERF.md)
+PARTIAL_SHARE = 1 / 7
+
+
+def decode_splits(B: int, Hkv: int, S: int, hd: int, G: int,
+                  kv_size: int = 2) -> int:
+    """Splits of the first S ring slots for the decode kernel's grid (Hkv,
+    B, n): as many as fill one round of resident blocks (two 112 KB blocks
+    an SM at head_dim <= 128, one 145 KB block at 256: on the H100 more
+    blocks than that only add merge traffic, PERF.md), at most one a
+    tile, and few enough that the partials' B Hq n (hd + 2) 8 bytes stay
+    within PARTIAL_SHARE of the K/V bytes (``kv_size`` bytes an element).
+    Shapes only, never data: a call needs no host sync and splits the same
+    way every time."""
+    tiles = -(-S // DECODE_TILE)
+    resident = DECODE_SMS * (1 if hd >= 256 else 2)
+    cap = int(PARTIAL_SHARE * 2 * S * hd * kv_size // (8 * G * (hd + 2)))
+    return max(1, min(resident // (B * Hkv), tiles, cap))
+
+
+def _check_decode(name, q, k_cache, v_cache, slot_pos, cur_pos, k_scale,
+                  v_scale):
+    """The decode kernel's checks; returns G."""
     B, Hq, hd = q.shape
     _, S, Hkv, _ = k_cache.shape
     _require(k_cache.shape == (B, S, Hkv, hd) == v_cache.shape,
@@ -104,9 +122,8 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
     _require(slot_pos.shape == (B, S) and cur_pos.shape == (B,),
              f"{name}: slot_pos {tuple(slot_pos.shape)} / cur_pos "
              f"{tuple(cur_pos.shape)} do not fit ({B}, {S})")
-    quant = _check_common(name, q, k_cache, v_cache, k_scale, v_scale,
-                          (slot_pos, cur_pos), hd, Hq, Hkv)
-    if quant:
+    if _check_common(name, q, k_cache, v_cache, k_scale, v_scale,
+                     (slot_pos, cur_pos), hd, Hq, Hkv):
         _require(k_scale.shape == (B, S, Hkv) == v_scale.shape,
                  f"{name}: scales must be ({B}, {S}, {Hkv})")
     _require(all(t.data_ptr() % 16 == 0
@@ -118,21 +135,114 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
     G = Hq // Hkv
     _require(G <= DECODE_MAX_GROUP,
              f"{name}: {G} query heads per kv head > {DECODE_MAX_GROUP}")
-    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
+    return G
+
+
+def _decode_launch(q, k_cache, v_cache, slot_pos, cur_pos, window, k_scale,
+                   v_scale, S, n_split, out, partials):
+    """Launch the decode kernel over the first S slots in n_split splits:
+    into ``out`` (n_split 1, no partials), into ``partials`` (m, l, acc),
+    or into both (then the merge kernel writes ``out``)."""
+    name = "decode_attention"
+    B, Hq, hd = q.shape
+    Hkv = k_cache.shape[2]
+    pm, pl, pacc = ((None,) * 3 if partials is None
+                    else (t.data_ptr() for t in partials))
     lib = build.load(name)
     rc = lib.decode_attention_launch(
-        _DTYPE_CODE[q.dtype], int(quant), hd, B, Hkv, _limit(S, kv_limit), G,
-        int(window or 0), 1.0 / hd ** 0.5,
+        _DTYPE_CODE[q.dtype], int(k_scale is not None), hd, B, Hkv, S,
+        Hq // Hkv, int(window or 0), n_split, 1.0 / hd ** 0.5,
         q.data_ptr(), q.stride(0), q.stride(1),
         k_cache.data_ptr(), *k_cache.stride()[:3],
         v_cache.data_ptr(), *v_cache.stride()[:3],
         *_scale_args(k_scale), *_scale_args(v_scale),
         slot_pos.data_ptr(), *slot_pos.stride(),
         cur_pos.data_ptr(), cur_pos.stride(0),
-        out.data_ptr(), out.stride(0), out.stride(1),
+        None if out is None else out.data_ptr(),
+        *((0, 0) if out is None else out.stride()[:2]), pm, pl, pacc,
         torch.cuda.current_stream(q.device).cuda_stream)
     _launched(name, rc)
+
+
+def _empty_partials(rows, n_split, hd, device):
+    """Split partials m, l (*rows, n_split) and acc (*rows, n_split, hd)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((*rows, n_split), **f32),
+            torch.empty((*rows, n_split), **f32),
+            torch.empty((*rows, n_split, hd), **f32))
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
+                     k_scale=None, v_scale=None, kv_limit=None):
+    """Single-token GQA attention over the ring: q (B, Hq, hd); caches
+    (B, S, Hkv, hd) in q's dtype, or int8 with ``k_scale``/``v_scale``
+    (B, S, Hkv) f32; slot_pos (B, S) and cur_pos (B,) int32.  Reads the
+    first ``kv_limit`` slots, in ``decode_splits`` splits merged on the
+    device.  Returns (B, Hq, hd)."""
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k_cache, v_cache, slot_pos, cur_pos,
+                                    window=window, k_scale=k_scale,
+                                    v_scale=v_scale, kv_limit=kv_limit)
+    name = "decode_attention"
+    _require(q.device.type == "cuda", f"{name}: no kernel for {q.device}")
+    G = _check_decode(name, q, k_cache, v_cache, slot_pos, cur_pos, k_scale,
+                      v_scale)
+    B, Hq, hd = q.shape
+    S = _limit(k_cache.shape[1], kv_limit)
+    n = decode_splits(B, k_cache.shape[2], S, hd, G, k_cache.element_size())
+    out = torch.empty((B, Hq, hd), dtype=q.dtype, device=q.device)
+    _decode_launch(q, k_cache, v_cache, slot_pos, cur_pos, window, k_scale,
+                   v_scale, S, n, out, None if n == 1 else
+                   _empty_partials((B, Hq), n, hd, q.device))
     return out
+
+
+def decode_attention_partials(q, k_cache, v_cache, slot_pos, cur_pos, *,
+                              n_split, window=None, k_scale=None,
+                              v_scale=None, kv_limit=None):
+    """The split kernel's partials alone, for ``n_split`` splits of
+    DECODE_TILE-slot tiles: f32 m, l (B, Hq, n_split) and acc (B, Hq,
+    n_split, hd), as ``ref.decode_attention_partials`` defines them (the
+    plain version for a CPU tensor)."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_partials(
+            q, k_cache, v_cache, slot_pos, cur_pos, n_split=n_split,
+            tile=DECODE_TILE, window=window, k_scale=k_scale,
+            v_scale=v_scale, kv_limit=kv_limit)
+    name = "decode_attention"
+    _require(q.device.type == "cuda", f"{name}: no kernel for {q.device}")
+    _check_decode(name, q, k_cache, v_cache, slot_pos, cur_pos, k_scale,
+                  v_scale)
+    S = _limit(k_cache.shape[1], kv_limit)
+    ref.split_bounds(S, n_split, DECODE_TILE)  # raises on a bad count
+    partials = _empty_partials(q.shape[:2], n_split, q.shape[2], q.device)
+    _decode_launch(q, k_cache, v_cache, slot_pos, cur_pos, window, k_scale,
+                   v_scale, S, n_split, None, partials)
+    return partials
+
+
+# the tensor-core pool kernel (csrc/flash_attention_pool.cu): packed rows a
+# block, and ring slots a tile (a split is a run of whole tiles)
+POOL_ROWS = 64
+
+
+def pool_tile(hd: int) -> int:
+    return 32 if hd >= 256 else 64
+
+
+# blocks the pool kernel's split aims at: one round of two resident blocks
+# an SM.  A block's tile loop is bound by its warps' latency, so a chunk of
+# few row tiles (the pow-2 sub-chunks) runs its ring in parallel pieces;
+# the partials stay within POOL_TARGET_BLOCKS x 64 rows (PERF.md)
+POOL_TARGET_BLOCKS = 2 * DECODE_SMS
+
+
+def pool_splits(B: int, Hkv: int, Sq: int, S: int, hd: int, G: int) -> int:
+    """Splits of the ring for the bf16 pool kernel's grid (row tiles x
+    splits, Hkv, B): as many as make POOL_TARGET_BLOCKS blocks, at most one
+    a tile.  Shapes only."""
+    blocks = -(-Sq * G // POOL_ROWS) * Hkv * B
+    return max(1, min(POOL_TARGET_BLOCKS // blocks, -(-S // pool_tile(hd))))
 
 
 def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
@@ -140,7 +250,9 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
     """Chunk-vs-ring GQA attention: q (B, Hq, Sq, hd); K/V (B, Hkv, S, hd)
     in q's dtype, or int8 with scales (B, Hkv, S) f32; pos_q (B, Sq) and
     pos_kv (B, S) int32 (-1 = empty slot).  Reads the first ``kv_limit``
-    slots.  Returns (B, Hq, Sq, hd)."""
+    slots, for bf16 q in ``pool_splits`` splits merged on the device.  The
+    rows of q, K and V start on 16-byte boundaries.  Returns (B, Hq, Sq,
+    hd)."""
     if q.device.type == "cpu":
         return ref.flash_attention_pool(q, k, v, pos_q, pos_kv,
                                         window=window, k_scale=k_scale,
@@ -160,11 +272,30 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
     if quant:
         _require(k_scale.shape == (B, Hkv, S) == v_scale.shape,
                  f"{name}: scales must be ({B}, {Hkv}, {S})")
+    _require(all(_aligned16(t) for t in (q, k, v)),
+             f"{name}: the rows of q, K and V must start on 16-byte "
+             "boundaries (the kernel copies them in 16-byte vectors)")
+    S = _limit(S, kv_limit)
+    n = 1 if q.dtype == torch.float32 else \
+        pool_splits(B, Hkv, Sq, S, hd, Hq // Hkv)
+    return _pool_launch(q, k, v, pos_q, pos_kv, window, k_scale, v_scale, S,
+                        n)
+
+
+def _pool_launch(q, k, v, pos_q, pos_kv, window, k_scale, v_scale, S,
+                 n_split):
+    """Launch the pool kernel over the first S slots in n_split splits
+    (bf16 q only past 1), then their merge; returns the output."""
+    name = "flash_attention_pool"
+    B, Hq, Sq, hd = q.shape
+    Hkv = k.shape[1]
     out = torch.empty((B, Hq, Sq, hd), dtype=q.dtype, device=q.device)
+    parts = (None,) * 3 if n_split == 1 else \
+        _empty_partials((B, Hq, Sq), n_split, hd, q.device)
     lib = build.load(name)
     rc = lib.flash_attention_pool_launch(
-        _DTYPE_CODE[q.dtype], int(quant), hd, B, Hq, Sq, _limit(S, kv_limit),
-        Hq // Hkv, int(window or 0), 1.0 / hd ** 0.5,
+        _DTYPE_CODE[q.dtype], int(k_scale is not None), hd, B, Hq, Sq, S,
+        Hq // Hkv, int(window or 0), n_split, 1.0 / hd ** 0.5,
         q.data_ptr(), *q.stride()[:3],
         k.data_ptr(), *k.stride()[:3],
         v.data_ptr(), *v.stride()[:3],
@@ -172,6 +303,7 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
         pos_q.data_ptr(), *pos_q.stride(),
         pos_kv.data_ptr(), *pos_kv.stride(),
         out.data_ptr(), *out.stride()[:3],
+        *(None if t is None else t.data_ptr() for t in parts),
         torch.cuda.current_stream(q.device).cuda_stream)
     _launched(name, rc)
     return out

@@ -30,11 +30,10 @@ def _deq(x, scale):
     return x if scale is None else x * scale.float()[..., None]
 
 
-def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
-                     k_scale=None, v_scale=None, kv_limit=None):
-    """q: (B, Hq, hd); caches: (B, S, Hkv, hd), or int8 with ``k_scale``/
-    ``v_scale`` (B, S, Hkv) f32; slot_pos: (B, S) int32; cur_pos: (B,).
-    Only the first ``kv_limit`` ring slots are read.  Returns (B, Hq, hd)."""
+def _decode_scores(q, k_cache, v_cache, slot_pos, cur_pos, window,
+                   k_scale, v_scale, kv_limit):
+    """Scaled f32 scores (B, Hkv, G, S) of the first S = ``kv_limit`` slots,
+    masked to -1e30, and the dequantised f32 V (B, S, Hkv, hd)."""
     B, Hq, hd = q.shape
     S = _limit(k_cache.shape[1], kv_limit)
     Hkv = k_cache.shape[2]
@@ -50,10 +49,64 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
     ok = (sp >= 0) & (sp <= cur)
     if window is not None:
         ok = ok & (sp > cur - window)
-    s = torch.where(ok[:, None, None, :], s, NEG_INF)
+    return torch.where(ok[:, None, None, :], s, NEG_INF), v
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
+                     k_scale=None, v_scale=None, kv_limit=None):
+    """q: (B, Hq, hd); caches: (B, S, Hkv, hd), or int8 with ``k_scale``/
+    ``v_scale`` (B, S, Hkv) f32; slot_pos: (B, S) int32; cur_pos: (B,).
+    Only the first ``kv_limit`` ring slots are read.  Returns (B, Hq, hd)."""
+    s, v = _decode_scores(q, k_cache, v_cache, slot_pos, cur_pos, window,
+                          k_scale, v_scale, kv_limit)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p, v)
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def split_bounds(S: int, n_split: int, tile: int):
+    """The slot ranges [lo, hi) of the decode kernel's splits: the first S
+    slots as T = ceil(S / tile) tiles, split z taking tiles [z T / n,
+    (z + 1) T / n), so each of the n <= T splits holds at least one tile and
+    together they cover [0, S) exactly."""
+    T = -(-S // tile)
+    if not 1 <= n_split <= T:
+        raise ValueError(f"{n_split} splits of {T} tiles of {tile} slots")
+    return [(min(S, z * T // n_split * tile),
+             min(S, (z + 1) * T // n_split * tile)) for z in range(n_split)]
+
+
+def decode_attention_partials(q, k_cache, v_cache, slot_pos, cur_pos, *,
+                              n_split, tile=64, window=None, k_scale=None,
+                              v_scale=None, kv_limit=None):
+    """What the split decode kernel writes for ``n_split`` > 1: per query
+    head and split (``split_bounds``), the split's max scaled score m
+    (masked slots count as -1e30), l = sum_j e^{s_j - m} and the
+    unnormalised acc = sum_j e^{s_j - m} v_j.  Returns f32 m, l (B, Hq,
+    n_split) and acc (B, Hq, n_split, hd); ``merge_partials`` turns them
+    into ``decode_attention``'s output."""
+    B, Hq, hd = q.shape
+    s, v = _decode_scores(q, k_cache, v_cache, slot_pos, cur_pos, window,
+                          k_scale, v_scale, kv_limit)
+    ms, ls, accs = [], [], []
+    for lo, hi in split_bounds(s.shape[-1], n_split, tile):
+        part = s[..., lo:hi]
+        m = part.amax(-1)
+        p = torch.exp(part - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", p, v[:, lo:hi]))
+    return (torch.stack(ms, -1).reshape(B, Hq, n_split),
+            torch.stack(ls, -1).reshape(B, Hq, n_split),
+            torch.stack(accs, -2).reshape(B, Hq, n_split, hd))
+
+
+def merge_partials(m, l, acc):
+    """The merge kernel: out = sum_s e^{m_s - m*} acc_s / sum_s e^{m_s - m*}
+    l_s, m* = max_s m_s.  m, l (B, Hq, n); acc (B, Hq, n, hd).  Returns f32
+    (B, Hq, hd)."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    return (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
 
 
 def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,

@@ -114,6 +114,228 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="stride 1"):
         ops.decode_attention(q, k.float().transpose(2, 3).contiguous()
                              .transpose(2, 3), k.float(), sp, cur)
+    # the pool kernel copies rows of q, K and V in 16-byte vectors: a row
+    # that starts off a 16-byte boundary (an odd offset, or a row stride of
+    # 33 bf16) is refused
+    kb = torch.zeros((1, 2, 8, 32), device=cuda, dtype=torch.bfloat16)
+    pq = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    pk = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    shifted = torch.zeros(1 * 4 * 4 * 32 + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view(1, 4, 4, 32)
+    wide = torch.zeros((1, 4, 4, 33), device=cuda,
+                       dtype=torch.bfloat16)[..., :32]
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.flash_attention_pool(bad, kb, kb, pq, pk)
+    q4 = torch.zeros((1, 4, 4, 32), device=cuda, dtype=torch.bfloat16)
+    k4 = torch.zeros((1, 2, 4, 32), device=cuda, dtype=torch.bfloat16)
+    kv_wide = torch.zeros((1, 2, 4, 33), device=cuda,
+                          dtype=torch.bfloat16)[..., :32]
+    for bad_k, bad_v in ((kv_wide, k4), (k4, kv_wide)):
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.flash_attention_pool(q4, bad_k, bad_v, pq, pk[:, :4])
+    # the split decode kernel takes n_split in [1, tiles]
+    kd = torch.zeros((1, 64, 2, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="splits"):
+        ops.decode_attention_partials(
+            q4[:, :, 0], kd, kd, torch.zeros((1, 64), dtype=torch.int32,
+                                             device=cuda),
+            cur, n_split=2)
+
+
+# -- the split decode kernel ---------------------------------------------------
+def _decode_inputs(cuda, B, Hq, Hkv, hd, S, *, live=None, wrap=None,
+                   window=None, kv_limit=None, dtype=torch.bfloat16,
+                   int8=False, seed=0):
+    """Ring rows holding positions [0, live) in slots [0, live), or (wrap)
+    the last S positions up to ``wrap`` at slot pos % S; q, K and V from a
+    seed, K/V in ``dtype`` or int8 with scales."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            cuda)
+    k, v, q = randn(B, S, Hkv, hd), randn(B, S, Hkv, hd), randn(B, Hq, hd)
+    sp = torch.full((B, S), -1, dtype=torch.int32)
+    if wrap is None:
+        sp[:, :live] = torch.arange(live, dtype=torch.int32)
+        cur = torch.full((B,), live - 1, dtype=torch.int32)
+    else:
+        pos = torch.arange(wrap - S + 1, wrap + 1, dtype=torch.int32)
+        sp[:, pos.long() % S] = pos
+        cur = torch.full((B,), wrap, dtype=torch.int32)
+    kw = dict(window=window, kv_limit=kv_limit)
+    q = q.to(dtype)
+    if int8:
+        (k, kw["k_scale"]), (v, kw["v_scale"]) = quantize_kv(k), quantize_kv(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    return (q, k, v, sp.to(cuda), cur.to(cuda)), kw
+
+
+# (label, B, Hq, Hkv, hd, S, extra): llama3.2-3b at B 1 (32 splits, the
+# most) and an int8 kv_limit, a ring below one 64-slot tile, a ragged ring
+# whose splits are uneven, recurrentgemma-9b's MQA at head_dim 256 with its
+# window, and a wrapped ring with a window at head_dim 64
+DECODE_SPLIT_CASES = [
+    ("B1 most splits", 1, 24, 8, 128, 2048, dict(live=2041)),
+    ("S below one tile", 3, 24, 8, 128, 40, dict(live=33)),
+    ("S not a multiple of the split", 2, 16, 1, 256, 1000, dict(live=990)),
+    ("int8 kv_limit", 4, 24, 8, 128, 2048,
+     dict(live=900, kv_limit=1024, int8=True)),
+    ("G16 hd256 window", 16, 16, 1, 256, 2048, dict(live=2041, window=700)),
+    ("wrapped ring window", 2, 8, 2, 64, 512, dict(wrap=3000, window=300))]
+
+
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_kernel_matches_plain(cuda, case, dtype):
+    _, B, Hq, Hkv, hd, S, extra = case
+    args, kw = _decode_inputs(cuda, B, Hq, Hkv, hd, S, dtype=dtype, **extra)
+    n = ops.decode_splits(B, Hkv, kw["kv_limit"] or S, hd, Hq // Hkv,
+                          args[1].element_size())
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(*args, **kw)
+    again = ops.decode_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 2
+    assert torch.equal(got, again)  # a fixed merge order: the same bits
+    _assert_close(got, ref.decode_attention(*args, **kw), dtype)
+    if case[0] == "B1 most splits":
+        assert n == 32
+    if case[0] == "G16 hd256 window":
+        assert n > 1
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_decode_kernel_partials_match_plain(cuda, mode):
+    """The split kernel's (m, l, acc) against ref.decode_attention_partials
+    at 1, 2 and the most splits (some of them fully masked: the window
+    leaves only the last 300 positions).  m and l are f32 sums of f32
+    exponentials on both sides (1e-4); acc is held like an output of q's
+    dtype."""
+    dtype = torch.float32 if mode == "f32" else torch.bfloat16
+    args, kw = _decode_inputs(cuda, 2, 24, 8, 128, 1024, live=1000,
+                              window=300, dtype=dtype, int8=mode == "int8")
+    for n in (1, 2, 16):
+        got = ops.decode_attention_partials(*args, n_split=n, **kw)
+        want = ref.decode_attention_partials(*args, n_split=n,
+                                             tile=ops.DECODE_TILE, **kw)
+        torch.cuda.synchronize()
+        assert all(g.shape == w.shape for g, w in zip(got, want))
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+        _assert_close(got[2], want[2], dtype)
+        if n == 16:
+            assert torch.all(want[0][..., :8] == ref.NEG_INF)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_decode_split_kernel_strided_row_views(cuda, mode):
+    """Rows 1..4 of a 6-row pool and a 1024-slot ring prefix of its 2048:
+    strided views, read in 8 splits, as the elastic decode passes them."""
+    args, kw = _decode_inputs(cuda, 6, 24, 8, 128, 2048, live=1017,
+                              int8=mode == "int8")
+    q, k, v, sp, cur = args
+    view = (q[1:5], k[1:5, :1024], v[1:5, :1024], sp[1:5, :1024], cur[1:5])
+    vkw = {n: (t[1:5, :1024] if t is not None else None)
+           for n, t in kw.items() if n in ("k_scale", "v_scale")}
+    assert not view[1].is_contiguous()
+    got = ops.decode_attention(*view, **vkw)
+    dense = [t.contiguous() for t in view]
+    want = ref.decode_attention(*dense, **{n: t.contiguous() for n, t in
+                                           vkw.items()})
+    _assert_close(got, want, torch.bfloat16)
+    assert ops.decode_splits(4, 8, 1024, 128, 3, view[1].element_size()) > 1
+
+
+def test_serving_attention_wrappers_do_not_sync(cuda):
+    """Neither wrapper waits on the device: the split count comes from
+    shapes, the partials from torch.empty."""
+    args, kw = _decode_inputs(cuda, 4, 24, 8, 128, 2048, live=2000)
+    q, k, v, sp, _ = args
+    pq = torch.arange(1900, 1964, dtype=torch.int32, device=cuda)[None]
+    pool = (q[:1, :, None].expand(1, 24, 64, 128).contiguous(),
+            k[:1].transpose(1, 2), v[:1].transpose(1, 2), pq, sp[:1])
+    ops.decode_attention(*args, **kw)
+    ops.flash_attention_pool(*pool)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.decode_attention(*args, **kw)
+        ops.flash_attention_pool(*pool)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+# -- the tensor-core pool kernel -------------------------------------------------
+def _pool_inputs(cuda, C, G, Hkv, hd, *, S=700, end=650, wrap=None,
+                 window=None, int8=False, rows=1, row=0, seed=0):
+    """A C-token chunk at positions (end - C, end] against row ``row`` of a
+    ``rows``-row bf16 pool (or int8 with scales), in the model's layout
+    transposed to the kernel's, as ``transformer.py`` passes it."""
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            cuda)
+    k, v = randn(rows, S, Hkv, hd), randn(rows, S, Hkv, hd)
+    q = randn(1, C, G * Hkv, hd).bfloat16()
+    sp = torch.full((rows, S), -1, dtype=torch.int32)
+    if wrap is None:
+        sp[:, :end + 1] = torch.arange(end + 1, dtype=torch.int32)
+    else:
+        pos = torch.arange(wrap - S + 1, wrap + 1, dtype=torch.int32)
+        sp[:, pos.long() % S] = pos
+        end = wrap
+    pos_q = torch.arange(end - C + 1, end + 1, dtype=torch.int32,
+                         device=cuda)[None]
+    kw = dict(window=window)
+    if int8:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        kw.update(k_scale=ks[row:row + 1].transpose(1, 2),
+                  v_scale=vs[row:row + 1].transpose(1, 2))
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    return (q.transpose(1, 2), k[row:row + 1].transpose(1, 2),
+            v[row:row + 1].transpose(1, 2), pos_q,
+            sp[row:row + 1].to(cuda)), kw
+
+
+@pytest.mark.parametrize("C", [2, 17, 512])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 3, 16])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_pool_tensor_core_kernel_matches_plain(cuda, mode, G, hd, C):
+    """Packed (query, head-in-group) rows at G 1, 3 and 16: C G rows end
+    mid-tile for C 2 and 17 (and for C 512 at G 3)."""
+    args, kw = _pool_inputs(cuda, C, G, 2 if G < 16 else 1, hd,
+                            int8=mode == "int8", seed=G * hd + C)
+    before = ops.LAUNCHES["flash_attention_pool"]
+    got = ops.flash_attention_pool(*args, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention_pool"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    _assert_close(got, ref.flash_attention_pool(*args, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["window", "wrapped ring", "strided row",
+                                  "int8 window wrapped", "int8 strided row"])
+def test_pool_tensor_core_kernel_ring_cases(cuda, case):
+    extra = {"window": dict(window=100),
+             "wrapped ring": dict(wrap=3000),
+             "strided row": dict(rows=4, row=2),
+             "int8 window wrapped": dict(window=150, wrap=2500, int8=True),
+             "int8 strided row": dict(rows=3, row=1, int8=True)}[case]
+    args, kw = _pool_inputs(cuda, 96, 3, 8, 128, **extra)
+    if "rows" in extra:
+        assert not args[1].is_contiguous()
+    got = ops.flash_attention_pool(*args, **kw)
+    again = ops.flash_attention_pool(*args, **kw)
+    assert ops.pool_splits(1, 8, 96, 700, 128, 3) > 1  # a merged split
+    assert torch.equal(got, again)
+    _assert_close(got, ref.flash_attention_pool(*args, **kw), torch.bfloat16)
 
 
 @pytest.mark.parametrize("C", [1, 16, 42, 70])

@@ -7,6 +7,8 @@ Inputs are made with numpy from a seed and handed to both frameworks.
 Tolerance for attention: 2e-5 in f32 — the reference's own
 kernel-vs-oracle tolerance (tests/test_kernels.py); only the summation
 order differs.  The scans' tolerances stand beside their tests."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as JA
 from repro.models import dequantize_kv as j_dequantize_kv
 from repro.models import quantize_kv as j_quantize_kv
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as TA
 from torch_attention_cases import (DECODE_CASES, POOL_CASES, decode_case,
                                    pool_call, pool_case, ring, to_torch)
@@ -145,6 +147,163 @@ def test_plain_versions_take_pool_row_views():
     dense = ops.decode_attention(tq, *to_torch(kc[:, :48], vc[:, :48], sp[:, :48]),
                                  tcur)
     assert torch.equal(view, dense)
+
+
+# -- the split form of decode ---------------------------------------------------
+# The decode kernel's plain split form: ref.decode_attention_partials (what
+# each split of the kernel's grid writes) composed with ref.merge_partials
+# (the merge kernel), held to the JAX reference at the file's TOL.  The
+# tiny cases' rings hold 16-64 slots, less than the kernel's 64-slot tile,
+# so the splits here are made of SPLIT_TILE-slot tiles: the partition rule
+# (ref.split_bounds) is the kernel's, only the tile is smaller.
+SPLIT_TILE = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_reference(case):
+    """(XLA on the truncated view, Pallas in interpret mode) for a case."""
+    q, kc, vc, sp, cur, kw = decode_case(case)
+    kvl = kw.pop("kv_limit", None)
+    S = kc.shape[1] if kvl is None else kvl
+    want = JA.decode_attention(jnp.asarray(q), jnp.asarray(kc[:, :S]),
+                               jnp.asarray(vc[:, :S]), jnp.asarray(sp[:, :S]),
+                               jnp.asarray(cur), **kw)
+    pallas = jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                   jnp.asarray(vc), jnp.asarray(sp),
+                                   jnp.asarray(cur), kv_limit=kvl,
+                                   block_k=16, **kw)
+    return _np(want), _np(pallas)
+
+
+def _split_counts(S):
+    return {"1": 1, "2": 2, "3": 3, "most": -(-S // SPLIT_TILE)}
+
+
+@pytest.mark.parametrize("n", ["1", "2", "3", "most"])
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_partials_merge_match_reference(case, n):
+    q, kc, vc, sp, cur, kw = decode_case(case)
+    S = kw.get("kv_limit") or kc.shape[1]
+    n_split = _split_counts(S)[n]
+    tq, tk, tv, tsp, tcur = to_torch(q, kc, vc, sp, cur)
+    before = dict(ops.LAUNCHES)
+    m, l, acc = ref.decode_attention_partials(tq, tk, tv, tsp, tcur,
+                                              n_split=n_split,
+                                              tile=SPLIT_TILE, **kw)
+    B, Hq, hd = q.shape
+    assert m.shape == l.shape == (B, Hq, n_split)
+    assert acc.shape == (B, Hq, n_split, hd)
+    got = ref.merge_partials(m, l, acc).numpy()
+    want, pallas = _decode_reference(case)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    assert ops.LAUNCHES == before
+
+
+def test_decode_partials_fully_masked_split_adds_nothing():
+    """Row 0 of ``per_batch_positions`` sees positions 0..5 only, so most
+    of its 16 splits hold masked slots alone: their m is -1e30, and merged
+    they weigh nothing; the ``masked_row`` case's second row has no valid
+    slot at all and merges to the mean of V over the S slots."""
+    q, kc, vc, sp, cur, kw = decode_case("per_batch_positions")
+    tq, tk, tv, tsp, tcur = to_torch(q, kc, vc, sp, cur)
+    m, l, acc = ref.decode_attention_partials(tq, tk, tv, tsp, tcur,
+                                              n_split=16, tile=SPLIT_TILE)
+    assert torch.all(m[0, :, 2:] == ref.NEG_INF)
+    assert torch.all(m[0, :, :2] > ref.NEG_INF)
+    live = ref.merge_partials(m[:, :, :2], l[:, :, :2], acc[:, :, :2])
+    np.testing.assert_allclose(ref.merge_partials(m, l, acc)[0].numpy(),
+                               live[0].numpy(), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(ref.merge_partials(m, l, acc).numpy(),
+                               _decode_reference("per_batch_positions")[0],
+                               rtol=TOL, atol=TOL)
+    q, kc, vc, sp, cur, kw = decode_case("masked_row")
+    tq, tk, tv, tsp, tcur = to_torch(q, kc, vc, sp, cur)
+    m, l, acc = ref.decode_attention_partials(tq, tk, tv, tsp, tcur,
+                                              n_split=3, tile=SPLIT_TILE)
+    assert torch.all(m[1] == ref.NEG_INF)
+    mean_v = tv[1].mean(0).repeat_interleave(q.shape[1] // kc.shape[2], 0)
+    np.testing.assert_allclose(ref.merge_partials(m, l, acc)[1].numpy(),
+                               mean_v.numpy(), rtol=TOL, atol=TOL)
+
+
+def test_split_bounds_refuses_empty_splits():
+    with pytest.raises(ValueError):
+        ref.split_bounds(64, 2, 64)
+    with pytest.raises(ValueError):
+        ref.split_bounds(64, 0, 4)
+
+
+# (B, Hkv, S, hd, G, K/V bytes an element): the serving paths' decode
+# shapes (llama3.2-3b at B 16, 4 and 1; qwen2-moe-a2.7b; recurrentgemma-9b
+# at head_dim 256; int8 pools), the elastic kv_limit's small powers of two,
+# and ragged S
+SPLIT_SHAPES = [(16, 8, 2048, 128, 3, 2), (4, 8, 2048, 128, 3, 2),
+                (1, 8, 2048, 128, 3, 2), (16, 16, 2048, 128, 1, 2),
+                (16, 1, 2048, 256, 16, 2), (16, 1, 1024, 256, 16, 2),
+                (16, 8, 2048, 128, 3, 1), (2, 2, 64, 32, 2, 2),
+                (3, 8, 40, 128, 3, 2), (1, 1, 1000, 64, 16, 1),
+                (1, 4, 130, 128, 4, 4), (64, 8, 4096, 128, 3, 2)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+def test_decode_splits_properties(shape):
+    """The split count depends on shapes only, every split holds at least
+    one tile, the splits cover the S slots exactly, the partials' bytes stay
+    within their share of the K/V bytes, and the grid fills one round of
+    resident blocks (and no more) unless a tile per split or that share
+    stops it."""
+    B, Hkv, S, hd, G, kv_size = shape
+    n = ops.decode_splits(*shape)
+    assert isinstance(n, int) and n == ops.decode_splits(*shape)
+    tile = ops.DECODE_TILE
+    bounds = ref.split_bounds(S, n, tile)
+    assert bounds[0][0] == 0 and bounds[-1][1] == S
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(lo % tile == 0 and hi > lo for lo, hi in bounds)
+    assert all(hi % tile == 0 for _, hi in bounds[:-1])
+
+    def partial_share(k):
+        return (B * G * Hkv * k * (hd + 2) * 8) / (2 * B * S * Hkv * hd
+                                                    * kv_size)
+    assert n == 1 or partial_share(n) <= ops.PARTIAL_SHARE
+    resident = ops.DECODE_SMS * (1 if hd >= 256 else 2)
+    assert B * Hkv * n <= max(resident, B * Hkv)
+    assert (B * Hkv * (n + 1) > resident or n == -(-S // tile)
+            or partial_share(n + 1) > ops.PARTIAL_SHARE)
+
+
+# (B, Hkv, Sq, S, hd, G): the serving paths' prefill chunks (llama3.2-3b
+# at C 512 down to its pow-2 sub-chunks, qwen2-moe-a2.7b, recurrentgemma-9b
+# at head_dim 256), a batch of rows, and rings below one tile
+POOL_SPLIT_SHAPES = [(1, 8, 512, 2048, 128, 3), (1, 8, 128, 2048, 128, 3),
+                     (1, 8, 16, 2048, 128, 3), (1, 8, 2, 2048, 128, 3),
+                     (1, 16, 512, 2048, 128, 1), (1, 1, 512, 2048, 256, 16),
+                     (1, 1, 128, 1024, 256, 16), (4, 8, 64, 2048, 64, 3),
+                     (2, 2, 17, 40, 32, 2), (1, 4, 700, 100, 128, 4)]
+
+
+@pytest.mark.parametrize("shape", POOL_SPLIT_SHAPES)
+def test_pool_splits_properties(shape):
+    """The pool split count depends on shapes only, every split holds at
+    least one tile, and the grid reaches POOL_TARGET_BLOCKS blocks (and no
+    more) unless a tile per split stops it."""
+    B, Hkv, Sq, S, hd, G = shape
+    n = ops.pool_splits(*shape)
+    assert isinstance(n, int) and n == ops.pool_splits(*shape)
+    tiles = -(-S // ops.pool_tile(hd))
+    bounds = ref.split_bounds(S, n, ops.pool_tile(hd))
+    assert bounds[0][0] == 0 and bounds[-1][1] == S and len(bounds) == n
+    blocks = -(-Sq * G // ops.POOL_ROWS) * Hkv * B
+    assert blocks * n <= max(ops.POOL_TARGET_BLOCKS, blocks)
+    assert blocks * (n + 1) > ops.POOL_TARGET_BLOCKS or n == tiles
+
+
+def test_decode_splits_spread_recurrentgemma_mqa():
+    """recurrentgemma-9b decodes at Hkv 1: one block a row without splits;
+    the split count takes its 16 rows to 8 blocks a row, one on nearly
+    every SM."""
+    assert ops.decode_splits(16, 1, 2048, 256, 16) == 8
 
 
 def test_wrappers_raise_off_cpu_without_kernel():
