@@ -19,9 +19,10 @@ attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
 to the plain path in an f32 serve, and its bf16 serve beside serves with a
 planted WKV fault: see F32_TOKEN_CHECK), profiles one ``llama3.2-3b``
-prefill chunk and one decode segment (the serving attention kernels' share
-of device time), and prints the kernel table as JSON and, as its last
-line, ``{"ok": true, "device": {...}}``.  Any failed phase
+and one ``qwen2-moe-a2.7b`` prefill chunk and decode segment (the serving
+attention kernels' and the expert GEMM's share of device time), and
+prints the kernel table as JSON and, as its last line, ``{"ok": true,
+"device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
 is visible or when run outside the repository.  Imports no JAX.
 """
@@ -56,6 +57,11 @@ HBM_BYTES_S = 3.35e12
 PEAK_BF16_OPS_S = 989e12
 # f32 outside the tensor cores: the scans' arithmetic
 PEAK_F32_OPS_S = 67e12
+# the fastest f32-accurate route for the f32 flash attention rows: the
+# tensor cores' 495 TFLOP/s TF32, three TF32 products for each f32-precision
+# product (3xTF32, as flash_attention_bwd.cu runs them), so a sound kernel
+# on that route cannot show a share above 1 against the bound
+PEAK_F32_TC_OPS_S = 495e12 / 3
 # kernel vs plain: both accumulate in f32 and round once to the bf16 output,
 # so a sound kernel differs by at most one bf16 ulp (2^-7 relative) of an
 # element; the limit is two ulps of the largest plain output.  Scaled this
@@ -78,9 +84,9 @@ LOGIT_MARGIN = 0.25
 # its served tokens to LOGIT_MARGIN itself in an f32 serve
 F32_TOKEN_CHECK = (RWKV_ARCH,)
 # the runs under torch.profiler: one training step, and one llama3.2-3b
-# prefill chunk and decode segment.  The serves skip their profiled repeat
-# (the trace's processing took 88-189 s a serve on the H100, PERF.md, PR
-# 13), which keeps the script near half its time limit
+# and one qwen2-moe-a2.7b prefill chunk and decode segment.  The serves
+# skip their profiled repeat (the trace's processing took 88-189 s a serve
+# on the H100, PERF.md), which keeps the script near half its time limit
 # the training phase: llama3.2-3b at full width in f32, a batch of
 # TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS AdamW steps through the
 # launcher.  One step at fixed weights and batch through the kernels is held
@@ -703,7 +709,7 @@ def flash_kernel_phase():
     rows = {}
     for name, (q, k, v, d_out), kw in flash_cases(gen):
         window = kw["window"]
-        rate = PEAK_F32_OPS_S if q.dtype == torch.float32 else \
+        rate = PEAK_F32_TC_OPS_S if q.dtype == torch.float32 else \
             PEAK_BF16_OPS_S
         # forward: output and lse
         out, lse = ops.flash_attention(q, k, v, window=window,
@@ -863,12 +869,12 @@ ATTENTION_KERNELS = ("decode_mma_kernel", "decode_kernel", "merge_kernel",
 
 
 def profile_serving_attention(cfg, params):
-    """Device time by kernel, and the attention kernels' share of it, in
-    one full-width prefill chunk (C 512 of one row, the ring holding 1536
-    earlier positions) and one 8-step fused decode segment at B 16 (rows
-    at 1024 positions, kv_limit 2048), each run once under the profiler
-    after a warm-up, through ``extend`` and ``decode_run`` with
-    ``kernel_backend="cuda"``."""
+    """Device time by kernel, and the attention kernels' (and the expert
+    GEMM's) share of it, in one full-width prefill chunk (C 512 of one row,
+    the ring holding 1536 earlier positions) and one 8-step fused decode
+    segment at B 16 (rows at 1024 positions, kv_limit 2048), each run once
+    under the profiler after a warm-up, through ``extend`` and
+    ``decode_run`` with ``kernel_backend="cuda"``."""
     from repro_torch.models import decode_run, extend, init_cache
     rng = np.random.default_rng(SEED + 2)
 
@@ -902,16 +908,20 @@ def profile_serving_attention(cfg, params):
             continue
         attn = {n[:90]: t for n, t in times
                 if any(k in n for k in ATTENTION_KERNELS)}
+        moe = sum(t for n, t in times if "moe_" in n)
         top = sorted(times, key=lambda r: -r[1])[:6]
         log(f"[profile] {cfg.name} {label}: wall {wall * 1e3:.2f} ms, device "
             f"busy {busy:.2f} ms ({busy / 1e3 / wall:.3f} of wall); attention "
             f"kernels {sum(attn.values()):.3f} ms "
-            f"({sum(attn.values()) / busy:.3f} of busy)")
+            f"({sum(attn.values()) / busy:.3f} of busy)"
+            + (f"; moe_gemm {moe:.3f} ms ({moe / busy:.3f} of busy)"
+               if moe else ""))
         for name, t in top:
             log(f"[profile]   {t:10.3f} ms  {name[:90]}")
         out[label] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
                           attention_ms=attn,
                           attention_share=sum(attn.values()) / busy,
+                          moe_gemm_ms=moe,
                           top_ms={n[:90]: t for n, t in top})
     del one, pool
     _release()
@@ -1556,6 +1566,8 @@ def full_width_serve_phase(arch):
     the plain path."""
     cfg, params = _init(arch)
     stats = bf16_serve(cfg, params)
+    if arch == MOE_ARCH:  # where the expert GEMM's device time goes
+        stats["profile"] = profile_serving_attention(cfg, params)
     if arch in F32_TOKEN_CHECK:
         del params
         _release()
@@ -1641,6 +1653,9 @@ def main():
             shape=headline[k],
             launches=sum(n[k] for n in by_path.values()),
             launches_by_path={p: n[k] for p, n in by_path.items()}, **row))
+        if k == "moe_gemm":  # every expert GEMM shape of the MoE path
+            kernels[-1]["cases"] = [dict(shape=n, **r) for (kn, n), r in
+                                    kernel_rows.items() if kn == k]
         if k == "flash_attention":
             # its gradient, a kernel of the training path with no TPU
             # counterpart (the Pallas kernel has no VJP)

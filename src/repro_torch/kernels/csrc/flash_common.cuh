@@ -34,13 +34,16 @@ __device__ __forceinline__ bool pair_ok(int i, int j, int causal,
 }
 
 // The reference kernel's test (repro/kernels/flash_attention.py,
-// _flash_kernel): a key tile starting at k0 meets a query tile starting at
-// q0 unless it lies wholly above the diagonal or wholly out of the window.
+// _flash_kernel): a key tile of BK rows starting at k0 meets a query tile
+// of BQ rows starting at q0 unless it lies wholly above the diagonal or
+// wholly out of the window.  The forward takes it at its 32-row tiles, the
+// backward at its own.
+template <int BQ = kT, int BK = kT>
 __device__ __forceinline__ bool tile_needed(int q0, int k0, int causal,
                                             int window) {
   bool run = true;
-  if (causal) run = k0 <= q0 + kT - 1;
-  if (window > 0) run = run && (k0 + kT - 1 > q0 - window);
+  if (causal) run = k0 <= q0 + BQ - 1;
+  if (window > 0) run = run && (k0 + BK - 1 > q0 - window);
   return run;
 }
 

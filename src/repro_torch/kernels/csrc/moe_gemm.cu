@@ -11,9 +11,18 @@
 // d = 2048, f = 1408) every call reads all expert weights, 346 MB in bf16,
 // which takes 0.103 ms at 3.35 TB/s, while its 2*E*C*d*f operations take
 // 0.006 ms (C = 16) to 0.015 ms (C = 42) at the bf16 tensor-core rate: bytes
-// bound it.  This first version runs the products on the CUDA cores in f32
+// bound it.  This kernel runs the products on the CUDA cores in f32
 // (67 TFLOP/s), where C = 16 needs 0.08 ms and C = 42 0.22 ms of arithmetic,
 // so the CUDA-core rate, not the bytes, bounds it at prefill.
+//
+// The sum's rounding is part of the served result.  Each output element is
+// one f32 fused multiply-add chain over d in ascending order: at the
+// 512-token prefill bucket (C 42) that is bit-equal to the plain version
+// (torch's f32 GEMM on the card).  A bf16 tensor-core kernel (mma.sync with
+// a multi-stage cp.async ring, tools/moe_gemm_mma.cu) is 1.5x faster at
+// decode and 3.0x at C 42, but its rounding moves qwen2-moe-a2.7b's
+// near-tie router and its served tokens past the token check's margin in
+// every accumulation form measured (PERF.md), so it is not used.
 //
 // Design: one block per (expert, 128-column f tile, C tile of 16, 32 or 64
 // rows, chosen from C so a decode call computes no dead rows).  A loop over
@@ -23,8 +32,7 @@
 // is fetched into registers while the current one is multiplied.  Each
 // thread keeps a 4 x 8 tile of f32 accumulators in registers and writes it
 // once.  Every output element is one thread's sum over d in ascending
-// order, so the result does not depend on C or on the tiling.  Left for
-// later work: tensor-core tiles (mma.sync / wgmma) and TMA pipelining.
+// order, so the result does not depend on C or on the tiling.
 #include "common.cuh"
 
 namespace {

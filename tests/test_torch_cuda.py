@@ -368,6 +368,39 @@ def test_moe_gemm_kernel_unaligned_rows(cuda, dtype):
     _assert_close(ops.moe_gemm(x, w), ref.moe_gemm(x, w), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gemm_rows_do_not_depend_on_capacity(cuda, dtype):
+    """Rows computed at C 1, 16 and 42 on the same inputs are bit-equal row
+    for row (elastic decode changes C, and the served tokens' exactness
+    must not depend on rounding): the kernel computes each output element
+    as one ascending fused multiply-add chain over d, whatever C and its C
+    tile (16, 32 or 64 rows)."""
+    rng = np.random.default_rng(11)
+    E, d, f = 5, 304, 200  # 16-byte rows (vector loads), ragged f tiles
+    x = torch.from_numpy(rng.standard_normal((E, 43, d), np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, d, f), np.float32) * 0.05)
+    x, w = x.to(cuda, dtype), w.to(cuda, dtype)
+    full = ops.moe_gemm(x[:, :42], w)
+    for C in (1, 16):
+        assert torch.equal(ops.moe_gemm(x[:, :C], w), full[:, :C]), C
+    _assert_close(full, ref.moe_gemm(x[:, :42], w), dtype)
+
+
+@pytest.mark.parametrize("C", [16, 42])
+@pytest.mark.parametrize("d,f", [(2048, 1408), (1408, 2048)])
+def test_moe_gemm_kernel_at_the_serve_shapes(cuda, d, f, C):
+    """qwen2-moe-a2.7b's expert GEMMs at full width (60 experts, gate / up
+    and down projections) in bf16, x on the capacity slice of the spill
+    buffer: a decode pool and a 512-token prefill bucket."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(C + d)
+    E = 60
+    x = torch.randn((E, C + 1, d), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((E, d, f), generator=g, device=cuda) * 0.02).bfloat16()
+    got = ops.moe_gemm(x[:, :C], w)
+    _assert_close(got, ref.moe_gemm(x[:, :C], w), torch.bfloat16)
+
+
 def test_moe_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x = torch.zeros((2, 4, 8), device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -558,6 +591,29 @@ def test_flash_kernels_match_plain(cuda, case, dtype):
                                     window=window)
     for got, rep, w, x in zip(grads, again, wants, (q, k, v)):
         assert got.dtype == dtype and got.stride() == x.stride()
+        assert torch.equal(got, rep)
+        _assert_close(got, w, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 77])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [40, 100, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_ragged_tiles(cuda, dtype, S, hd, G, window):
+    """The backward kernel at lengths that are no multiple of its 64-row
+    block tiles (32 at head_dim 256) or its 32-row streamed tiles, one and
+    three query heads a kv head, causal and windowed, every head_dim:
+    against the plain version and bit-equal across two runs."""
+    q, k, v, d_out = _flash_case((1, 2 * G, 2, S, S, hd, window), dtype,
+                                 cuda, seed=S + hd + G)
+    want, want_lse = ref.flash_attention_lse(q, k, v, window=window)
+    args = (q, k, v, want, want_lse, d_out)
+    grads = ops.flash_attention_bwd(*args, window=window)
+    again = ops.flash_attention_bwd(*args, window=window)
+    torch.cuda.synchronize()
+    wants = ref.flash_attention_bwd(*args, window=window)
+    for got, rep, w in zip(grads, again, wants):
         assert torch.equal(got, rep)
         _assert_close(got, w, dtype)
 

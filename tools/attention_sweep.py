@@ -1,4 +1,5 @@
-"""Sweeps behind the serving attention kernels' tuning, on one NVIDIA GPU.
+"""Sweeps behind the tuning of the attention kernels and the expert GEMM,
+on one NVIDIA GPU.
 
     python3 tools/attention_sweep.py
 
@@ -27,7 +28,25 @@ of 25 CUDA-event runs, the L2 flushed by a 64 MB ``zero_`` before each):
 * ``gaps``: the qwen2-moe-a2.7b bf16 serve of ``chip_smoke.py`` through
   the kernels as they are and through each precision variant, its served
   tokens scored by the plain path (``chip_smoke.plain_check``, ungated):
-  exact argmax count, tokens past LOGIT_MARGIN, the largest gap.
+  exact argmax count, tokens past LOGIT_MARGIN, the largest gap;
+* ``bwd_precision``: the training flash attention backward at
+  ``chip_smoke.py``'s f32 training shape (B 2, S 1024, 24/8 heads of 128,
+  causal): dq, dk and dv of the plain f32 version and of the kernel
+  against the same function in float64 (mean signed and RMS error relative
+  to mean |grad|), with each one's time, for the kernel as built (3xTF32)
+  and for edited copies: one TF32 product (1xTF32), the three products
+  added straight into the sum, 32-row streamed tiles, S and dP through a
+  fresh fragment every 16 deep, expf; then the times of knock-outs of its
+  parts (wrong results: timing only), its two kernels' device times, and
+  SDPA's backward;
+* ``moe``: the bf16 expert GEMM at qwen2-moe-a2.7b's decode (gate / up and
+  down) and prefill (C 42) shapes: the f32 sums of the kernel as built
+  (CUDA cores) and of the tensor-core variant (``tools/moe_gemm_mma.cu``,
+  built in place of ``moe_gemm.cu``) in three accumulation forms against float64 (as ``bwd_precision``), with the
+  share of bf16 outputs that differ from the plain version's; the times of
+  each, of the kernel with 32-deep bf16 slices and of the tensor-core
+  variant's other ring and slice depths, beside ``torch.bmm``; then the MoE
+  serve's tokens (as ``gaps``) for each form.
 
 Each line names the case and prints one number per setting.  Run all
 sections, or name some: ``python3 tools/attention_sweep.py precision gaps``.
@@ -91,6 +110,106 @@ PRECISION = [
          "st.o[2 * dt + 1];"),
         ("attn_mma.cuh", "      add4(st.o[2 * dt], t0);\n"
          "      add4(st.o[2 * dt + 1], t1);\n", "")])]
+
+
+# edits of the backward's 3xTF32 product (flash_mma.cuh) and tiles
+BWD_VARIANTS = [
+    ("1xTF32", [("flash_mma.cuh",
+                 "  mma_tf32(t, a.lo, b.hi[0], b.hi[1]);\n"
+                 "  mma_tf32(t, a.hi, b.lo[0], b.lo[1]);\n", "")]),
+    ("3xTF32 straight into the sum", [
+        ("flash_attention_bwd.cu", "fm::mma3(t, a[j], bb);",
+         "fm::mma3(acc[n], a[j], bb);"),
+        ("flash_attention_bwd.cu", "fm::mma3(t, a[kq], bb);",
+         "fm::mma3(acc[n], a[kq], bb);"),
+        ("flash_attention_bwd.cu", "fm::add_rn(acc[n], t);", "")]),
+    ("32-row streamed tiles", [("flash_attention_bwd.cu",
+                                "static constexpr int BS = 16;",
+                                "static constexpr int BS = 32;")]),
+    ("S and dP through a fresh fragment every 16 deep", [
+        ("flash_attention_bwd.cu", "constexpr int kScoreDepth = 32;",
+         "constexpr int kScoreDepth = 16;")]),
+    ("expf for exp2f", [
+        ("flash_attention_bwd.cu",
+         "(s[n][e] * a.scale - ls[il]) * kLog2e;\n"
+         "        const float p = ok ? exp2f(x)",
+         "(s[n][e] * a.scale - ls[il]);\n"
+         "        const float p = ok ? expf(x)"),
+        ("flash_attention_bwd.cu",
+         "(s[n][e] * a.scale - lse_r[r]) * kLog2e;\n"
+         "        const float p = ok ? exp2f(x)",
+         "(s[n][e] * a.scale - lse_r[r]);\n"
+         "        const float p = ok ? expf(x)")])]
+# knock-outs of the backward's parts (wrong results: timing only)
+NO_SCORES = ("flash_attention_bwd.cu",
+             "for (int kk = 0; kk < HD; kk += kScoreDepth) {",
+             "for (int kk = 0; kk < 0; kk += kScoreDepth) {")
+NO_PRODUCTS = [("flash_attention_bwd.cu", f"    acc_product<HD, BS, AW>({x}",
+                f"    if (0) acc_product<HD, BS, AW>({x}")
+               for x in ("dv, s,", "dk, dp,", "dq, s,")]
+BWD_PARTS = [
+    ("no exp", [("flash_attention_bwd.cu", "ok ? exp2f(x) : 0.f;",
+                 "ok ? x : 0.f;")]),  # both kernels
+    ("no S and dP products", [NO_SCORES]),
+    ("no dV, dK and dQ products", NO_PRODUCTS),
+    ("no streamed-tile split", [
+        ("flash_mma.cuh",
+         "void split_own(float2* dst, const float* raw) {",
+         "void split_own(float2* dst, const float* raw) {\n  return;")]),
+    ("loads, split and masks only", [NO_SCORES] + NO_PRODUCTS)]
+# edits of the bf16 expert GEMM: TC builds the tensor-core variant in
+# place of moe_gemm.cu, in three accumulation forms and with other ring and
+# slice depths; with out_f32 a build writes its f32 sums instead of rounding
+# them to bf16 (for the precision lines)
+STAGES = "constexpr int kStages = 4;"
+DEPTH = "constexpr int kDepth = 32;"
+FRESH = "constexpr int kFreshDepth = 16;"
+TC = ("moe_gemm.cu", None, os.path.join(ROOT, "tools", "moe_gemm_mma.cu"))
+
+
+def out_f32(edits):
+    """The edit that makes a build of ``edits`` write its f32 sums."""
+    if TC in edits:
+        return ("moe_gemm.cu", "          ob[row * a.o_sc + col] = "
+                "__float2bfloat16(acc[m][n][i]);",
+                "          reinterpret_cast<float*>(a.out)[e * a.o_se + "
+                "row * a.o_sc + col] = acc[m][n][i];")
+    return ("moe_gemm.cu", "      if (col < a.f) ob[row * a.o_sc + col] = "
+            "rt::from_f<T>(acc[r][c]);",
+            "      if (col < a.f) reinterpret_cast<float*>(a.out)[e * a.o_se"
+            " + row * a.o_sc + col] = acc[r][c];")
+
+
+
+MOE_FORMS = [  # precision, time and the MoE serve's tokens
+    ("tensor cores, each 16 deep rounded into the sum", [TC]),
+    ("tensor cores, each 32 deep rounded into the sum", [
+        TC, ("moe_gemm.cu", FRESH, "constexpr int kFreshDepth = 32;")]),
+    ("tensor cores, straight into the sum", [
+        TC, ("moe_gemm.cu", FRESH, "constexpr int kFreshDepth = 0;")])]
+MOE_VARIANTS = [  # the first kernel's slice depth, the tensor-core ring
+    ("first kernel, 32-deep bf16 slices", [  # bf16 only: f32's X slice
+        ("moe_gemm.cu", "constexpr int kBD = 16;", "constexpr int kBD = 32;"),
+        ("moe_gemm.cu", "  if (dtype == 0) launch_bc<float>(a, E, st);\n"
+         "  else launch_bc",
+         "  if (dtype == 0) return static_cast<int>(cudaErrorInvalidValue);\n"
+         "  launch_bc")]),
+    ("tensor cores, 2 stages", [
+        TC, ("moe_gemm.cu", STAGES, "constexpr int kStages = 2;")]),
+    ("tensor cores, 3 stages", [
+        TC, ("moe_gemm.cu", STAGES, "constexpr int kStages = 3;")]),
+    ("tensor cores, 6 stages", [
+        TC, ("moe_gemm.cu", STAGES, "constexpr int kStages = 6;")]),
+    ("tensor cores, 16-deep slices, 8 stages", [
+        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 16;"),
+        ("moe_gemm.cu", STAGES, "constexpr int kStages = 8;")]),
+    ("tensor cores, 64-deep slices", [
+        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;")]),
+    ("tensor cores, 64-deep slices, 2 stages", [
+        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;"),
+        ("moe_gemm.cu", STAGES, "constexpr int kStages = 2;")])]
+MOE = ("decode C=16 d=2048 f=1408", "decode down C=16 d=1408 f=2048",
+       "prefill C=42 d=2048 f=1408")
 
 
 def log(*a):
@@ -174,7 +293,9 @@ def flush_compare(gen):
 
 
 def variant_lib(tag, edits, name="flash_attention_pool"):
-    """Kernel ``name`` built from a copy of the sources with ``edits``."""
+    """Kernel ``name`` built from a copy of the sources with ``edits``:
+    (file, text, replacement), or (file, None, path) to put the file at
+    ``path`` in its place."""
     from repro_torch.kernels import build
     d = os.path.join(ROOT, "build", "sweep", tag.replace(" ", "_")
                      .replace(",", ""))
@@ -182,6 +303,9 @@ def variant_lib(tag, edits, name="flash_attention_pool"):
         shutil.copytree(build.CSRC, d)
         for fname, a, b in edits:
             p = os.path.join(d, fname)
+            if a is None:
+                shutil.copyfile(b, p)
+                continue
             with open(p) as f:
                 src = f.read()
             if a not in src:
@@ -228,6 +352,15 @@ def precision_libs():
     return out
 
 
+def _rel(got, want):
+    """Mean signed and RMS error of ``got`` against float64 ``want``,
+    relative to mean |want|."""
+    e = got.double() - want
+    scale = want.abs().mean().item()
+    return (f"mean {(e * want.sign()).mean().item() / scale:+.2e} rms "
+            f"{e.pow(2).mean().sqrt().item() / scale:.2e}")
+
+
 def _dense(q, k, v, sp, cur, window, kv_limit, dtype):
     """The decode function computed densely in ``dtype``."""
     S = kv_limit or k.shape[1]
@@ -250,21 +383,16 @@ def precision(gen, libs):
         "bf16 kvl=2048", "G=1 bf16 kvl=2048",
         "hd256 G=16 bf16 kvl=2048 window=2048"))
 
-    def rel(got, want):
-        e = got.double() - want
-        scale = want.abs().mean().item()
-        return (f"mean {(e * want.sign()).mean().item() / scale:+.2e} rms "
-                f"{e.pow(2).mean().sqrt().item() / scale:.2e}")
     for name, args, kw, _ in cases:
         want = _dense(*args, kw["window"], kw["kv_limit"], torch.float64)
         plain = _dense(*args, kw["window"], kw["kv_limit"], torch.float32)
-        res = [f"plain f32 {rel(plain, want)}"]
+        res = [f"plain f32 {_rel(plain, want)}"]
         for tag, lib in libs:
             def run():
                 _, l, acc = ops.decode_attention_partials(*args, n_split=1,
                                                           **kw)
                 return acc[:, :, 0] / l[:, :, 0, None]
-            res.append(f"{tag} {rel(with_libs(lib, run), want)}")
+            res.append(f"{tag} {_rel(with_libs(lib, run), want)}")
         log(f"[precision] {name:38s} " + "; ".join(res))
     timed = by_name(cs.pool_cases(gen), ("bf16 C=512",)) + by_name(
         cs.decode_cases(gen), ("bf16 kvl=2048",))
@@ -312,14 +440,126 @@ def gaps(libs):
             f"{worst:.4f}")
 
 
-SECTIONS = ("decode", "pool", "flush", "variants", "precision", "gaps")
+def _bwd64(q, k, v, d_out, window):
+    """dq, dk, dv of causal (windowed) GQA attention in float64."""
+    hd, G = q.shape[-1], q.shape[1] // k.shape[1]
+    qd, dod = q.double(), d_out.double()
+    kd, vd = (x.double().repeat_interleave(G, 1) for x in (k, v))
+    ok = cs.flash_mask(q.shape[2], k.shape[2], window)
+    s = torch.einsum("bhqd,bhkd->bhqk", qd, kd) / hd ** 0.5
+    p = torch.softmax(torch.where(ok, s, -1e30), -1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vd)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dod, vd)
+              - (dod * out).sum(-1, keepdim=True))
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qd) / hd ** 0.5
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dod)
+    B, Hkv, Skv = k.shape[:3]
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kd) / hd ** 0.5,
+            dk.reshape(B, Hkv, G, Skv, hd).sum(2),
+            dv.reshape(B, Hkv, G, Skv, hd).sum(2))
+
+
+def bwd_precision(gen):
+    from repro_torch.kernels import ops, ref
+    name, (q, k, v, d_out), kw = cs.flash_cases(gen)[0]
+    window = kw["window"]
+    out, lse = ref.flash_attention_lse(q, k, v, window=window)
+    args = (q, k, v, out, lse, d_out)
+    want = _bwd64(q, k, v, d_out, window)
+
+    def line(tag, fn, reps=25):
+        grads = fn()
+        errs = "; ".join(f"{n} {_rel(g, w)}" for n, g, w in
+                         zip(("dq", "dk", "dv"), grads, want))
+        log(f"[bwd_precision] {name} {tag}: {errs}; "
+            f"{cs.time_ms(fn, reps=reps):.4f} ms")
+    line("plain f32", lambda: ref.flash_attention_bwd(*args, window=window),
+         reps=10)
+    libs = [("as built (3xTF32)", {})] + [
+        (tag, {"flash_attention_bwd": variant_lib(tag, edits,
+                                                  "flash_attention_bwd")})
+        for tag, edits in BWD_VARIANTS]
+    for tag, lib in libs:
+        with_libs(lib, lambda: line(tag, lambda: ops.flash_attention_bwd(
+            *args, window=window)))
+    for tag, edits in BWD_PARTS:  # where the time goes
+        lib = variant_lib(tag, edits, "flash_attention_bwd")
+        ms = with_libs({"flash_attention_bwd": lib}, lambda: cs.time_ms(
+            lambda: ops.flash_attention_bwd(*args, window=window)))
+        log(f"[bwd_precision] {name} {tag} (timing only): {ms:.4f} ms")
+    _, rows = cs._device_times(lambda: ops.flash_attention_bwd(
+        *args, window=window))
+    log(f"[bwd_precision] {name} as built, by kernel: " + "; ".join(
+        f"{k[:40]} {ms:.4f} ms" for k, ms in rows if "flash" in k))
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+    o = cs._sdpa(qg, kg, vg, window)
+    ms = cs.time_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), d_out,
+                                                retain_graph=True))
+    log(f"[bwd_precision] {name} SDPA backward: {ms:.4f} ms")
+
+
+def _moe_f32(lib, x, w):
+    """The bf16 expert GEMM of ``lib`` (an out_f32 build) on x, w: its f32
+    sums (E, C, f)."""
+    from repro_torch.kernels import ops
+    E, C, d = x.shape
+    f = w.shape[2]
+    out = torch.empty((E, C, f), dtype=torch.float32, device=x.device)
+    rc = lib.moe_gemm_launch(
+        1, E, C, d, f, x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
+        w.stride(0), w.stride(1), out.data_ptr(), out.stride(0),
+        out.stride(1), ops._aligned16(x), ops._aligned16(w),
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"moe_gemm_launch: cudaError {rc}")
+    return out
+
+
+def moe_sweep(gen):
+    from repro_torch.kernels import ops, ref
+    cases = [(n, a) for n, a, _, _ in by_name(cs.moe_cases(gen), MOE)]
+    forms = [("as built", [])] + MOE_FORMS
+    # precision: f32 sums against float64, and bf16 outputs that differ
+    # from the plain version's
+    for n, (x, w) in cases:
+        want = torch.einsum("ecd,edf->ecf", x.double(), w.double())
+        plain = ref.moe_gemm(x, w)
+        f32 = torch.einsum("ecd,edf->ecf", x.float(), w.float())
+        res = [f"plain f32 {_rel(f32, want)}"]
+        for tag, edits in forms:
+            f32 = _moe_f32(variant_lib(f"{tag} f32 out",
+                                       edits + [out_f32(edits)],
+                                       "moe_gemm"), x, w)
+            lib = variant_lib(tag, edits, "moe_gemm") if edits else None
+            out = with_libs({"moe_gemm": lib} if lib else {},
+                            lambda: ops.moe_gemm(x, w))
+            diff = (out != plain).float().mean().item()
+            res.append(f"{tag} {_rel(f32, want)}, bf16 != plain {diff:.2e}")
+        log(f"[moe_precision] {n}: " + "; ".join(res))
+    log("[moe] torch.bmm: " + "; ".join(
+        f"{n} {cs.time_ms(lambda: torch.bmm(*a)):.4f}" for n, a in cases)
+        + " ms")
+    libs = [("as built", {})] + [
+        (tag, {"moe_gemm": variant_lib(tag, edits, "moe_gemm")})
+        for tag, edits in MOE_FORMS + MOE_VARIANTS]
+    for tag, lib in libs:
+        res = with_libs(lib, lambda: [
+            f"{n} {cs.time_ms(lambda: ops.moe_gemm(*a)):.4f}"
+            for n, a in cases])
+        log(f"[moe] {tag}: " + "; ".join(res) + " ms")
+    gaps(libs[:len(MOE_FORMS) + 1])
+
+
+SECTIONS = ("decode", "pool", "flush", "variants", "precision", "gaps",
+            "bwd_precision", "moe")
 
 
 def main(argv=None):
     want = (argv if argv is not None else sys.argv[1:]) or SECTIONS
     smi = cs.device_phase()
     from repro_torch.kernels import build
-    build.build(["decode_attention", "flash_attention_pool"])
+    build.build(["decode_attention", "flash_attention_pool", "moe_gemm",
+                 "flash_attention_bwd"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
     if "decode" in want:
@@ -336,6 +576,10 @@ def main(argv=None):
             precision(gen, libs)
         if "gaps" in want:
             gaps(libs)
+    if "bwd_precision" in want:
+        bwd_precision(gen)
+    if "moe" in want:
+        moe_sweep(gen)
     log(smi)
 
 
