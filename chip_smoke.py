@@ -18,9 +18,10 @@ path: 60 routed experts through the grouped expert GEMM kernel),
 attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
 to the plain path in an f32 serve, and its bf16 serve beside serves with a
-planted WKV fault: see F32_TOKEN_CHECK), profiles one ``llama3.2-3b``
-and one ``qwen2-moe-a2.7b`` prefill chunk and decode segment (the serving
-attention kernels' and the expert GEMM's share of device time), and
+planted WKV fault: see F32_TOKEN_CHECK), profiles one ``llama3.2-3b``, one
+``qwen2-moe-a2.7b`` and one ``rwkv6-1.6b`` prefill chunk and decode segment
+(the serving attention kernels', the expert GEMM's and the WKV6 scan's
+share of device time), and
 prints the kernel table as JSON and, as its last line, ``{"ok": true,
 "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
@@ -862,30 +863,39 @@ def profile_train_step(cfg, params, toks):
                 top_ms={n[:90]: t for n, t in top})
 
 
-# the serving attention kernels' device-side names (decode: the split kernel
-# and its merge; prefill: the tensor-core and the f32 pool kernels)
-ATTENTION_KERNELS = ("decode_mma_kernel", "decode_kernel", "merge_kernel",
-                     "pool_mma_kernel", "flash_pool_kernel")
+# the serving kernels' device-side names, summed in a serving profile: the
+# attention kernels (decode: the split kernel and its merge; prefill: the
+# tensor-core and the f32 pool kernels), the expert GEMM and the WKV6 scan
+PROFILED_KERNELS = {
+    "attention": ("decode_mma_kernel", "decode_kernel", "merge_kernel",
+                  "pool_mma_kernel", "flash_pool_kernel"),
+    "moe_gemm": ("moe_",),
+    "rwkv6_scan": ("wkv6_",)}
+# tokens of the profiled prefill chunk: the 512-token chunk of the MoE and
+# llama serves, the 128-token bucket (the largest) of the rwkv6 serve
+PROFILE_CHUNK = {RWKV_ARCH: 128}
 
 
-def profile_serving_attention(cfg, params):
-    """Device time by kernel, and the attention kernels' (and the expert
-    GEMM's) share of it, in one full-width prefill chunk (C 512 of one row,
-    the ring holding 1536 earlier positions) and one 8-step fused decode
-    segment at B 16 (rows at 1024 positions, kv_limit 2048), each run once
-    under the profiler after a warm-up, through ``extend`` and
-    ``decode_run`` with ``kernel_backend="cuda"``."""
+def profile_serving(cfg, params):
+    """Device time by kernel, and the serving kernels' share of it
+    (PROFILED_KERNELS), in one full-width prefill chunk (C tokens of one
+    row, PROFILE_CHUNK or 512, after three earlier chunks: the ring holding
+    3 C earlier positions) and one 8-step fused decode segment at B 16
+    (rows at 1024 positions, kv_limit 2048), each run once under the
+    profiler after a warm-up, through ``extend`` and ``decode_run`` with
+    ``kernel_backend="cuda"``."""
     from repro_torch.models import decode_run, extend, init_cache
     rng = np.random.default_rng(SEED + 2)
+    C = PROFILE_CHUNK.get(cfg.name, 512)
 
     def toks(*shape):
         return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
     one = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
-    prompt = toks(1, 2048)
+    prompt = toks(1, 4 * C)
     for i in range(3):
-        extend(cfg, params, one, prompt[:, 512 * i:512 * (i + 1)])
+        extend(cfg, params, one, prompt[:, C * i:C * (i + 1)])
     warm = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
-    extend(cfg, params, warm, prompt[:, :512])
+    extend(cfg, params, warm, prompt[:, :C])
     del warm
     pool = init_cache(cfg, params, POOL, MAX_LEN, torch.bfloat16)
     rows = toks(POOL, 1024)
@@ -896,8 +906,8 @@ def profile_serving_attention(cfg, params):
     decode_run(cfg, params, pool, last, active, 1, kv_limit=MAX_LEN)
     out = {}
     for label, fn in [
-            ("prefill C=512", lambda: extend(cfg, params, one,
-                                             prompt[:, 1536:])),
+            (f"prefill C={C}", lambda: extend(cfg, params, one,
+                                              prompt[:, 3 * C:])),
             (f"decode B={POOL} x 8 steps", lambda: decode_run(
                 cfg, params, pool, last, active, 8, kv_limit=MAX_LEN))]:
         wall, times = _device_times(fn)
@@ -906,22 +916,20 @@ def profile_serving_attention(cfg, params):
             log(f"[profile] {cfg.name} {label}: no device time in the trace: "
                 "not measured")
             continue
-        attn = {n[:90]: t for n, t in times
-                if any(k in n for k in ATTENTION_KERNELS)}
-        moe = sum(t for n, t in times if "moe_" in n)
+        by = {k: {n[:90]: t for n, t in times if any(x in n for x in names)}
+              for k, names in PROFILED_KERNELS.items()}
         top = sorted(times, key=lambda r: -r[1])[:6]
         log(f"[profile] {cfg.name} {label}: wall {wall * 1e3:.2f} ms, device "
-            f"busy {busy:.2f} ms ({busy / 1e3 / wall:.3f} of wall); attention "
-            f"kernels {sum(attn.values()):.3f} ms "
-            f"({sum(attn.values()) / busy:.3f} of busy)"
-            + (f"; moe_gemm {moe:.3f} ms ({moe / busy:.3f} of busy)"
-               if moe else ""))
+            f"busy {busy:.2f} ms ({busy / 1e3 / wall:.3f} of wall)"
+            + "".join(f"; {k} {sum(v.values()):.3f} ms "
+                      f"({sum(v.values()) / busy:.3f} of busy)"
+                      for k, v in by.items() if v))
         for name, t in top:
             log(f"[profile]   {t:10.3f} ms  {name[:90]}")
         out[label] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
-                          attention_ms=attn,
-                          attention_share=sum(attn.values()) / busy,
-                          moe_gemm_ms=moe,
+                          **{f"{k}_ms": v for k, v in by.items()},
+                          **{f"{k}_share": sum(v.values()) / busy
+                             for k, v in by.items()},
                           top_ms={n[:90]: t for n, t in top})
     del one, pool
     _release()
@@ -1113,11 +1121,32 @@ def _record_prefill_chunks(eng):
     return chunks
 
 
+# the scans and the axis of their first argument that holds the tokens
+SCANS = {"rglru_scan": 1, "rwkv6_scan": 2}
+
+
+def _tally_scans(ops, calls):
+    """Wrap the scans' wrappers so each call adds one to ``calls[name]``'s
+    "prefill" (more than one token) or "decode" count.  Returns the real
+    wrappers, to put back."""
+    real = {n: getattr(ops, n) for n in SCANS}
+    for name, axis in SCANS.items():
+        tally = calls.setdefault(name, {"prefill": 0, "decode": 0})
+
+        def wrapped(x, *args, _real=real[name], _tally=tally, _axis=axis,
+                    **kw):
+            _tally["decode" if x.shape[_axis] == 1 else "prefill"] += 1
+            return _real(x, *args, **kw)
+        setattr(ops, name, wrapped)
+    return real
+
+
 def serve(cfg, params, flows, *, device, dtype, kv_dtype="bf16",
-          inject_after=40):
+          inject_after=40, scan_calls=None):
     """Serve ``flows`` through the port's engine.  Returns (engine, metrics,
     wall seconds, per-flow wall TTFT seconds, launches during the run,
-    per-flow prefill chunk lengths)."""
+    per-flow prefill chunk lengths); with a ``scan_calls`` dict, also fills
+    it with each scan's prefill and decode calls during the run."""
     from repro_torch.core.engine import RealAgentXPUEngine
     from repro_torch.kernels import ops
     eng = RealAgentXPUEngine(cfg, params, max_len=MAX_LEN, dtype=dtype,
@@ -1139,12 +1168,17 @@ def serve(cfg, params, flows, *, device, dtype, kv_dtype="bf16",
     late.extend(_requests(flows, late=True))
     _sync(device)
     ops.reset_launches()  # count the serving path's launches only
+    real = None if scan_calls is None else _tally_scans(ops, scan_calls)
     t0 = time.perf_counter()
     for f in flows:
         if not f["late"]:
             t_sub[f["id"]] = t0
-    metrics = eng.run()
-    _sync(device)
+    try:
+        metrics = eng.run()
+        _sync(device)
+    finally:
+        for name, fn in (real or {}).items():
+            setattr(ops, name, fn)
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     if late:
@@ -1380,8 +1414,10 @@ def bf16_serve(cfg, params):
     rng = np.random.default_rng(SEED)
     flows = make_flows(cfg, 6, OUT_TOKENS, rng)
     torch.cuda.reset_peak_memory_stats()
+    calls = {}
     eng, metrics, wall, ttft, launches, chunks = serve(
-        cfg, params, flows, device="cuda", dtype=torch.bfloat16)
+        cfg, params, flows, device="cuda", dtype=torch.bfloat16,
+        scan_calls=calls)
     st, decode_tokens = check_serve(cfg, eng, metrics, flows, launches,
                                     label)
     gen_tokens = sum(len(eng.output_tokens(f["id"])) for f in flows)
@@ -1407,6 +1443,7 @@ def bf16_serve(cfg, params):
         ttft_sim_s={"reactive": summ["reactive_ttft"],
                     "proactive": summ["proactive_ttft"]},
         launches=launches,
+        scan_calls={k: v for k, v in calls.items() if launches[k]},
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         **{k: st[k] for k in ("host_syncs", "decode_device_calls",
                               "prefill_device_calls", "fused_steps",
@@ -1417,8 +1454,10 @@ def bf16_serve(cfg, params):
         f"{prompt_tokens} prompt + {gen_tokens} generated tokens in "
         f"{wall:.3f} s wall ({gen_tokens / wall:.2f} tok/s), decode tokens "
         f"{decode_tokens}, host syncs {st['host_syncs']}, aborted runs "
-        f"{st['aborted_runs']}, launches {launches}, peak memory "
-        f"{serve_stats['peak_mem_gb']:.2f} GB")
+        f"{st['aborted_runs']}, launches {launches}"
+        + (f" (scan calls {serve_stats['scan_calls']})"
+           if serve_stats["scan_calls"] else "")
+        + f", peak memory {serve_stats['peak_mem_gb']:.2f} GB")
     log(f"[serve] {label}: mid-run reactive TTFT {ttft[late_id]:.3f} s wall; "
         f"first token from run start (wall s): "
         + json.dumps(serve_stats["first_token_from_start_wall_s"])
@@ -1532,7 +1571,7 @@ def bf16_gate(cfg, params, eng, flows, chunks, worst):
 
 def serve_phase():
     """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool, then
-    the serving attention's profile (profile_serving_attention)."""
+    the serving profile (profile_serving)."""
     cfg, params = _init(ARCH)
     serve_stats = bf16_serve(cfg, params)
     flows8 = make_flows(cfg, 2, 16, np.random.default_rng(SEED + 1))
@@ -1553,7 +1592,7 @@ def serve_phase():
                                plain_total=total8, plain_worst_gap=worst8)
     del eng8
     _release()
-    serve_stats["profile"] = profile_serving_attention(cfg, params)
+    serve_stats["profile"] = profile_serving(cfg, params)
     return serve_stats
 
 
@@ -1566,8 +1605,8 @@ def full_width_serve_phase(arch):
     the plain path."""
     cfg, params = _init(arch)
     stats = bf16_serve(cfg, params)
-    if arch == MOE_ARCH:  # where the expert GEMM's device time goes
-        stats["profile"] = profile_serving_attention(cfg, params)
+    if arch in (MOE_ARCH, RWKV_ARCH):  # the expert GEMM's, the scan's share
+        stats["profile"] = profile_serving(cfg, params)
     if arch in F32_TOKEN_CHECK:
         del params
         _release()
@@ -1583,8 +1622,10 @@ def f32_token_check(cfg):
     label = f"{cfg.name} f32"
     params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
     flows = make_flows(cfg, 6, OUT_TOKENS, np.random.default_rng(SEED))
+    calls = {}
     eng, metrics, wall, _, launches, chunks = serve(
-        cfg, params, flows, device="cuda", dtype=torch.float32)
+        cfg, params, flows, device="cuda", dtype=torch.float32,
+        scan_calls=calls)
     check_serve(cfg, eng, metrics, flows, launches, label)
     t0 = time.perf_counter()
     exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
@@ -1594,8 +1635,9 @@ def f32_token_check(cfg):
         f"(margin {LOGIT_MARGIN}), serve {wall:.3f} s, launches "
         f"{launches}, check {time.perf_counter() - t0:.1f} s")
     del eng
-    return dict(wall_s=wall, launches=launches, plain_exact=exact,
-                plain_total=total, plain_worst_gap=worst)
+    return dict(wall_s=wall, launches=launches,
+                scan_calls={k: v for k, v in calls.items() if launches[k]},
+                plain_exact=exact, plain_total=total, plain_worst_gap=worst)
 
 
 def main():

@@ -69,7 +69,9 @@ ARGTYPES = {
         + [_P, _L, _L]              # u
         + [_P, _L, _L, _L]          # state0
         + [_P, _L, _L, _L]          # out
-        + [_P]                      # state out
+        + [_P, _P]                  # state out, scratch
+        + [_P, _L, _P, _I]          # tile counter, tiles taken, flags, epoch
+        + [_I, _I]                  # u_f32, s0_vec
         + [_P],                     # stream
     "flash_attention_launch":
         [_I] * 9 + [_F]

@@ -8,26 +8,44 @@
 // Query and key positions both start at the reference's pos_base, so the
 // offset cancels in the masks.  It also writes, when asked, the f32 row
 // log-sum-exp of the scaled scores, which the backward
-// (flash_attention_bwd.cu) recomputes the probabilities from.
+// (flash_attention_bwd.cu) recomputes the probabilities from.  Which keys
+// a query meets follows the reference's tile test at 32-query and 32-key
+// tiles: a key of a tile the test skips carries no weight, an invalid key
+// of a tile it keeps the reference's -1e30, so a query with no valid key
+// (only where Sq > Skv + window - 1) averages V over the keys of its kept
+// tiles, and one whose tiles were all skipped gets out 0 and lse +inf.
 //
 // What bounds it on the card: at the training shape (B 2, 24/8 heads of
 // 128, S 1024, causal) the valid pairs need 12.9 GFLOP against 67 MB of
-// f32 q/k/v/out, far above the ridge, so operations bound it.  This first
-// version computes them in f32 on the CUDA cores: one block per (32-query
-// tile, query head, row) walks the 32-key tiles, staging each in shared
-// memory, skips the tiles the reference's test finds fully masked (so a
-// causal row reads about half of K/V, a windowed one only its window), and
-// carries the online-softmax state (m, l, acc) in shared memory and
-// registers.  Each thread register-blocks an SR x 4 score microtile and a
-// 4 x CQ output microtile, so one value read from shared memory feeds
-// several FMAs.  Left for later work: tensor-core tiles (wgmma), TMA
-// pipelining and sharing a K/V tile among the G query heads of a group.
-#include "flash_common.cuh"
+// f32 q/k/v/out, far above the ridge, so operations bound it.  Training is
+// f32, and an f32 product on the CUDA cores peaks at 67 TFLOP/s, so both
+// products, S = q K^T and O += P V, run on the tensor cores as 3xTF32
+// (flash_mma.cuh, as the backward): three TF32 mma.sync each, at f32's
+// precision, each k-step through a fresh fragment added to the sum with
+// round-to-nearest.  One block of four warps per (64-query tile, query
+// head, row), the last (heaviest under the causal mask) query tiles issued
+// first; each warp owns 16 query rows, their scores and their output in
+// registers, so the online softmax runs in registers: row max and sum are
+// quad shuffles, the score accumulator becomes P as the A operand of PV
+// without leaving the registers, and no barrier runs per row.  The query
+// tile stays in shared memory as f32, split into TF32 parts as the
+// fragments are read; the key and value tiles arrive by cp.async into a
+// staging tile while the previous tile is multiplied and are split once
+// into (hi, lo) pairs, since every warp reads them.  They hold 16 rows, so
+// two blocks fit an SM (80 KB of shared memory at head_dim 128; 32-row
+// tiles, one block an SM, took 1.57x the time: PERF.md).  The key tiles
+// the test skips are never loaded (a causal row reads about half of K/V, a
+// windowed one only its window).  At head_dim 256 a block holds 32 rows:
+// two warps share each 16 rows and split their 256 output columns.  bf16
+// inputs take the same path, converted exactly to f32 as they are loaded.
+#include "flash_mma.cuh"
 
 namespace {
 
-using fa::Cfg;
-using fa::kT;
+using fm::acc_product;
+using fm::kLog2e;
+using fm::kScoreDepth;
+using fm::rows_step;
 
 struct FwdArgs {
   const void* q;
@@ -41,141 +59,201 @@ struct FwdArgs {
   float* lse;  // (B, Hq, Sq) contiguous, or null
   int Hq, Sq, Skv, G, causal, window;
   float scale;
+  int vec;  // 1: f32 q, K, V rows on 16-byte boundaries (cp.async)
 };
 
+// Per head_dim: threads a block (four warps), query rows a block holds (16
+// a warp up to head_dim 128, 32 at 256, where two warps share each 16 rows
+// and split the columns), output columns a warp, rows of a streamed key
+// tile, and the shared memory: the query tile (f32), the streamed K and V
+// tiles staged as they arrive (f32) and split ((hi, lo) pairs).
 template <int HD>
-constexpr int fwd_smem_floats() {
-  return 3 * kT * Cfg<HD>::LD + kT * Cfg<HD>::PLD + 3 * kT;
-}
+struct Cfg {
+  static constexpr int NT = 128;
+  static constexpr int RW = HD > 128 ? 32 : 64;
+  static constexpr int WR = RW / 16;
+  static constexpr int AW = HD * WR / (NT / 32);
+  static constexpr int BS = 16;
+  static constexpr int kSmemBytes =
+      (RW * HD + 2 * BS * HD) * 4 + 2 * BS * HD * 8;
+  static_assert(NT / 32 % WR == 0 && AW % 8 == 0 && fa::kT % BS == 0 &&
+                    RW % fa::kT == 0,
+                "tiles");
+};
+
+// The reference's -1e30 for an invalid key of a kept tile, in the log2
+// units the softmax runs in
+constexpr float kMaskedLog2 = rt::kNegInf * kLog2e;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(Cfg<HD>::NT) flash_fwd_kernel(FwdArgs a) {
   using C = Cfg<HD>;
-  constexpr int kWarps = C::NT / 32;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / a.G;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nq = min(kT, a.Sq - q0);
-
+  constexpr int RW = C::RW, BS = C::BS, AW = C::AW, NT = C::NT;
+  constexpr int kT = fa::kT;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.G;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * RW;  // the last tiles first
+  const int nq = min(RW, a.Sq - q0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp % C::WR) * 16, wc = (warp / C::WR) * AW;
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                 // [kT][LD], pre-scaled
-  float* k_s = q_s + kT * C::LD;     // [kT][LD]
-  float* v_s = k_s + kT * C::LD;     // [kT][LD]
-  float* p_s = v_s + kT * C::LD;     // [kT][PLD] scores, then probabilities
-  float* m_s = p_s + kT * C::PLD;    // running max
-  float* l_s = m_s + kT;             // running sum
-  float* c_s = l_s + kT;             // this tile's correction
+  float* q_s = smem;
+  float* k_raw = q_s + RW * HD;  // the next key tile as it arrives
+  float* v_raw = k_raw + BS * HD;
+  float2* k2 = reinterpret_cast<float2*>(v_raw + BS * HD);  // split
+  float2* v2 = k2 + BS * HD;
 
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh
-      + (long long)q0 * a.q_ss;
+  fm::load_tile<T, HD, RW, NT>(
+      q_s, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
+               (long long)q0 * a.q_ss, a.q_ss, nq, a.vec);
+  // the key tiles whose 32-key tile the reference's test keeps for one of
+  // the block's 32-query tiles: [lo, hi) (an interval under the causal and
+  // window masks)
+  auto kept = [&](int k0) {
+    return fa::tile_needed<RW, kT>(q0, k0 - k0 % kT, a.causal, a.window);
+  };
+  int lo = 0;
+  while (lo < a.Skv && !kept(lo)) lo += BS;
+  int hi = lo;
+  while (hi < a.Skv && kept(hi)) hi += BS;
+
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  fa::load_tile<T, HD>(q_s, qb, a.q_ss, nq, a.scale);
-  if (tid < kT) {
-    m_s[tid] = rt::kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][C::CQ];
-#pragma unroll
-  for (int s = 0; s < 4; ++s)
-#pragma unroll
-    for (int u = 0; u < C::CQ; ++u) acc[s][u] = 0.f;
+  auto issue = [&](int k0) {
+    const int nk = min(BS, a.Skv - k0);
+    fm::load_raw<T, HD, BS, NT>(k_raw, kb + (long long)k0 * a.k_ss, a.k_ss,
+                                nk, a.vec);
+    fm::load_raw<T, HD, BS, NT>(v_raw, vb + (long long)k0 * a.v_ss, a.v_ss,
+                                nk, a.vec);
+  };
+  if (lo < hi) issue(lo);
+  am::commit();  // with the query tile
 
-  for (int k0 = 0; k0 < a.Skv; k0 += kT) {
-    if (!fa::tile_needed(q0, k0, a.causal, a.window)) continue;
-    const int nk = min(kT, a.Skv - k0);
-    __syncthreads();  // the previous tile's readers are done
-    fa::load_tile<T, HD>(k_s, kb + (long long)k0 * a.k_ss, a.k_ss, nk, 1.f);
-    fa::load_tile<T, HD>(v_s, vb + (long long)k0 * a.v_ss, a.v_ss, nk, 1.f);
-    __syncthreads();
-    float sc[C::SR][4], unused[C::SR][4];
-    fa::score_tile<HD, false>(q_s, k_s, nullptr, nullptr, sc, unused);
+  // the lane's rows i0 + g and i0 + g + 8: running max (log2 units) and
+  // the lane's part of the running sum (its columns; the quad's parts are
+  // added at the end)
+  const int i0 = q0 + wr, qt = i0 - i0 % kT;  // the warp's 32-query tile
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[AW / 8][4];
 #pragma unroll
-    for (int x = 0; x < C::SR; ++x) {
-      const int i = fa::score_row<HD>(x);
+  for (int n = 0; n < AW / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = fa::score_col(c);
-        // out of range: no weight at all; masked: the reference's -1e30
-        float s = -INFINITY;
-        if (i < nq && j < nk)
-          s = fa::pair_ok(q0 + i, k0 + j, a.causal, a.window) ? sc[x][c]
-                                                              : rt::kNegInf;
-        p_s[i * C::PLD + j] = s;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+
+  for (int k0 = lo; k0 < hi; k0 += BS) {
+    am::wait<0>();  // this thread's copies of the tile landed
+    fm::split_own<HD, BS, NT>(k2, k_raw);
+    fm::split_own<HD, BS, NT>(v2, v_raw);
+    __syncthreads();  // the split tiles (and the query tile) are whole
+    if (k0 + BS < hi) issue(k0 + BS);  // over the chunks this thread split
+    am::commit();
+    // S = q K^T: rows queries, columns keys
+    float s[BS / 8][4];
+#pragma unroll
+    for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    static_assert(HD % kScoreDepth == 0, "score k-steps");
+    for (int kk = 0; kk < HD; kk += kScoreDepth)
+      rows_step<HD, BS>(s, q_s, k2, wr, kk);
+    // scaled to log2 units and masked; no mask where every pair of the
+    // warp's rows is valid
+    const bool whole = i0 + 15 < a.Sq && k0 + BS <= a.Skv &&
+                       (!a.causal || k0 + BS - 1 <= i0) &&
+                       (a.window <= 0 || k0 > i0 + 15 - a.window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * sl2;
+        if (!whole) {
+          const int i = i0 + g + (e >> 1) * 8;
+          const int j = k0 + n * 8 + 2 * t + (e & 1);
+          if (i >= a.Sq || j >= a.Skv ||
+              !fa::tile_needed(qt, j - j % kT, a.causal, a.window))
+            x = -INFINITY;  // no weight at all
+          else if (!fa::pair_ok(i, j, a.causal, a.window))
+            x = kMaskedLog2;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    // online softmax over the quad's 4 lanes of each row
+    float corr[2], base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = am::quad_max(mx[r]);
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no weight yet
+      corr[r] = exp2f(m[r] - base[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
     }
-    __syncthreads();
-    // online softmax, one warp per query row, one key a lane (kT == 32)
-    for (int r = warp; r < kT; r += kWarps) {
-      const float s = p_s[r * C::PLD + lane];
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, rt::warp_max(s));
-      const float p = expf(s - m_new);
-      p_s[r * C::PLD + lane] = p;
-      const float sum = rt::warp_sum(p);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
+#pragma unroll
+    for (int n = 0; n < BS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - base[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
       }
-    }
-    __syncthreads();
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const float corr = c_s[fa::acc_row<HD>(s)];
+    for (int n = 0; n < AW / 8; ++n)
 #pragma unroll
-      for (int u = 0; u < C::CQ; ++u) acc[s][u] *= corr;
-    }
-    for (int j = 0; j < nk; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) pv[s] = p_s[fa::acc_row<HD>(s) * C::PLD + j];
-#pragma unroll
-      for (int u = 0; u < C::CQ; ++u) {
-        const float vv = v_s[j * C::LD + fa::acc_col<HD>(u)];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) acc[s][u] += pv[s] * vv;
-      }
-    }
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+    acc_product<HD, BS, AW>(acc, s, v2, wc);  // O += P V
+    __syncthreads();  // the split tiles are free
   }
-  __syncthreads();
+  am::wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = am::quad_sum(l[r]);
+    inv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
   T* ob = static_cast<T*>(a.out) + b * a.o_sb + h * a.o_sh;
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int r = fa::acc_row<HD>(s);
-    if (r >= nq) continue;
-    const float inv = 1.f / fmaxf(l_s[r], 1e-30f);
+  for (int n = 0; n < AW / 8; ++n)
 #pragma unroll
-    for (int u = 0; u < C::CQ; ++u)
-      ob[(long long)(q0 + r) * a.o_ss + fa::acc_col<HD>(u)] =
-          rt::from_f<T>(acc[s][u] * inv);
-  }
-  if (a.lse != nullptr && tid < nq) {
-    // a row that met no tile has no probabilities: +inf gives them 0
-    const float l = l_s[tid];
-    a.lse[((long long)b * a.Hq + h) * a.Sq + q0 + tid] =
-        l > 0.f ? m_s[tid] + logf(l) : INFINITY;
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + g + (e >> 1) * 8;
+      if (i < a.Sq)
+        ob[(long long)i * a.o_ss + wc + n * 8 + 2 * t + (e & 1)] =
+            rt::from_f<T>(acc[n][e] * inv[e >> 1]);
+    }
+  if (a.lse != nullptr && wc == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = i0 + g + 8 * r;
+      // a row that met no tile has no probabilities: +inf gives them 0
+      if (i < a.Sq)
+        a.lse[((long long)b * a.Hq + h) * a.Sq + i] =
+            l[r] > 0.f ? m[r] * (1.f / kLog2e) + logf(l[r]) : INFINITY;
+    }
   }
 }
 
 template <typename T, int HD>
-cudaError_t launch(dim3 grid, cudaStream_t st, const FwdArgs& a) {
-  constexpr int kSmem = fwd_smem_floats<HD>() * sizeof(float);
+cudaError_t launch(int B, cudaStream_t st, const FwdArgs& a) {
+  using C = Cfg<HD>;
   static const cudaError_t attr =
-      fa::allow_smem(flash_fwd_kernel<T, HD>, kSmem);
+      fa::allow_smem(flash_fwd_kernel<T, HD>, C::kSmemBytes);
   if (attr != cudaSuccess) return attr;
-  flash_fwd_kernel<T, HD><<<grid, Cfg<HD>::NT, kSmem, st>>>(a);
+  // the query tiles on the slowest grid axis: issued in order
+  const dim3 grid(a.Hq, B, (a.Sq + C::RW - 1) / C::RW);
+  flash_fwd_kernel<T, HD><<<grid, C::NT, C::kSmemBytes, st>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_hd(int hd, dim3 grid, cudaStream_t st, const FwdArgs& a) {
+cudaError_t launch_hd(int hd, int B, cudaStream_t st, const FwdArgs& a) {
   switch (hd) {
-    case 32: return launch<T, 32>(grid, st, a);
-    case 64: return launch<T, 64>(grid, st, a);
-    case 128: return launch<T, 128>(grid, st, a);
-    default: return launch<T, 256>(grid, st, a);
+    case 32: return launch<T, 32>(B, st, a);
+    case 64: return launch<T, 64>(B, st, a);
+    case 128: return launch<T, 128>(B, st, a);
+    default: return launch<T, 256>(B, st, a);
   }
 }
 
@@ -194,16 +272,18 @@ extern "C" int flash_attention_launch(
     long long v_ss, void* out, long long o_sb, long long o_sh,
     long long o_ss, void* lse, void* stream) {
   if ((hd != 32 && hd != 64 && hd != 128 && hd != 256) || G < 1 || B < 1 ||
-      Hq < 1 || Sq < 1 || Skv < 1)
+      Hq < 1 || Hq % G != 0 || Sq < 1 || Skv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a{q,   q_sb, q_sh, q_ss, k,  k_sb,   k_sh,
             k_ss, v,   v_sb, v_sh, v_ss, out, o_sb,
             o_sh, o_ss, static_cast<float*>(lse), Hq, Sq, Skv, G,
-            causal, window, scale};
-  const dim3 grid((Sq + kT - 1) / kT, Hq, B);
+            causal, window, scale, 0};
+  a.vec = dtype == 0 && fm::rows16(q, q_sb, q_sh, q_ss) &&
+          fm::rows16(k, k_sb, k_sh, k_ss) &&
+          fm::rows16(v, v_sb, v_sh, v_ss);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = dtype == 0
-                              ? launch_hd<float>(hd, grid, st, a)
-                              : launch_hd<__nv_bfloat16>(hd, grid, st, a);
+                              ? launch_hd<float>(hd, B, st, a)
+                              : launch_hd<__nv_bfloat16>(hd, B, st, a);
   return static_cast<int>(err);
 }

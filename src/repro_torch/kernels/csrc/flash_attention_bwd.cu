@@ -87,35 +87,10 @@ struct Cfg {
   static_assert(NT / 32 % WR == 0 && AW % 8 == 0 && BS % 8 == 0, "tiles");
 };
 
-// head_dim depth of S and dP whose products share one fresh fragment: 32
-// halves the 16-deep step's round-to-nearest adds, at a precision within
-// 1.5x of the plain f32 version's (PERF.md)
-constexpr int kScoreDepth = 32;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// acc += X Y^T over head_dim [kk, kk + kScoreDepth): X a block tile's warp
-// rows [wr, wr + 16), Y the BS rows of a pre-split streamed tile, through a
-// fresh fragment (fm::add_rn)
-template <int HD, int BS>
-__device__ __forceinline__ void rows_step(float (&acc)[BS / 8][4],
-                                          const float* x, const float2* y,
-                                          int wr, int kk) {
-  fm::A3 a[kScoreDepth / 8];
-#pragma unroll
-  for (int j = 0; j < kScoreDepth / 8; ++j)
-    fm::a_tile<HD>(a[j], x, wr, kk + 8 * j);
-#pragma unroll
-  for (int n = 0; n < BS / 8; ++n) {
-    float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kScoreDepth / 8; ++j) {
-      fm::B3 bb;
-      fm::b_rows<HD>(bb, y, n * 8, kk + 8 * j);
-      fm::mma3(t, a[j], bb);
-    }
-    fm::add_rn(acc[n], t);
-  }
-}
+using fm::acc_product;
+using fm::kLog2e;
+using fm::kScoreDepth;
+using fm::rows_step;
 
 // s = X Y^T and dp = X2 Y2^T for a warp's 16 rows of the block's tiles X,
 // X2 against the BS rows of the pre-split streamed tiles Y, Y2
@@ -133,32 +108,6 @@ __device__ __forceinline__ void scores(float (&s)[BS / 8][4],
     rows_step<HD, BS>(s, x, y, wr, kk);
     rows_step<HD, BS>(dp, x2, y2, wr, kk);
   }
-}
-
-// acc += C Y: C the warp's 16 x BS product (accumulator fragments), Y the
-// pre-split streamed tile's BS rows at the warp's AW columns [wc, wc + AW),
-// each 16 rows of Y through a fresh fragment
-template <int HD, int BS, int AW>
-__device__ __forceinline__ void acc_product(float (&acc)[AW / 8][4],
-                                            const float (&c)[BS / 8][4],
-                                            const float2* y, int wc) {
-  static_assert(BS % 16 == 0, "16-row k-steps");
-  fm::A3 a[BS / 8];
-#pragma unroll
-  for (int kq = 0; kq < BS / 8; ++kq) fm::acc_as_a(a[kq], c[kq]);
-#pragma unroll
-  for (int n = 0; n < AW / 8; ++n)
-#pragma unroll
-    for (int k2 = 0; k2 < BS / 16; ++k2) {
-      float t[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kq = 2 * k2; kq < 2 * k2 + 2; ++kq) {
-        fm::B3 bb;
-        fm::b_rows2<HD>(bb, y, kq * 8, wc + n * 8);
-        fm::mma3(t, a[kq], bb);
-      }
-      fm::add_rn(acc[n], t);
-    }
 }
 
 template <typename T, int HD>
@@ -441,12 +390,6 @@ cudaError_t launch_hd(int hd, int B, int Hkv, cudaStream_t st,
   }
 }
 
-// rows of p (row strides s) start on 16-byte boundaries, in f32
-bool rows16(const void* p, long long sb, long long sh, long long ss) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
-         sh % 4 == 0 && ss % 4 == 0;
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, K, V, d_out and the gradients).
@@ -475,9 +418,10 @@ extern "C" int flash_attention_bwd_launch(
             dq,    dq_sb, dq_sh, dq_ss, dk,    dk_sb, dk_sh, dk_ss,
             dv,    dv_sb, dv_sh, dv_ss, Hq,    Sq,    Skv,   G,
             causal, window, scale, 0};
-  a.vec = dtype == 0 && rows16(q, q_sb, q_sh, q_ss) &&
-          rows16(k, k_sb, k_sh, k_ss) && rows16(v, v_sb, v_sh, v_ss) &&
-          rows16(dout, do_sb, do_sh, do_ss);
+  a.vec = dtype == 0 && fm::rows16(q, q_sb, q_sh, q_ss) &&
+          fm::rows16(k, k_sb, k_sh, k_ss) &&
+          fm::rows16(v, v_sb, v_sh, v_ss) &&
+          fm::rows16(dout, do_sb, do_sh, do_ss);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0 ? launch_hd<float>(hd, B, Hq / G, st, a)

@@ -46,6 +46,14 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * HD + (c ^ ((((r ^ (r >> 2)) & 3) << 3) | (r & 4)));
 }
 
+// rows of p (row strides s) start on 16-byte boundaries, in f32: the
+// tiles may be copied by cp.async
+inline bool rows16(const void* p, long long sb, long long sh,
+                   long long ss) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 &&
+         sh % 4 == 0 && ss % 4 == 0;
+}
+
 // Rows [0, n) of an R x HD tile from global memory (row stride ss, unit
 // column stride) into a swizzled f32 tile, rows n.. zero.  With vec (f32
 // source, rows 16-byte aligned) by cp.async; else by loads converted to f32
@@ -222,6 +230,62 @@ __device__ __forceinline__ void b_rows2(B3& b, const float2* s, int k0,
 // renumbered as b_rows2 reads B
 __device__ __forceinline__ void acc_as_a(A3& a, const float (&c)[4]) {
   a.set(c[0], c[2], c[1], c[3]);
+}
+
+// head_dim depth of the score products (S, and dP in the backward) that
+// share one fresh fragment: 32 halves the 16-deep step's round-to-nearest
+// adds, at a precision within 1.5x of the plain f32 version's (PERF.md)
+constexpr int kScoreDepth = 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// acc += X Y^T over head_dim [kk, kk + kScoreDepth): X a block tile's warp
+// rows [wr, wr + 16), Y the BS rows of a pre-split streamed tile, through a
+// fresh fragment (add_rn)
+template <int HD, int BS>
+__device__ __forceinline__ void rows_step(float (&acc)[BS / 8][4],
+                                          const float* x, const float2* y,
+                                          int wr, int kk) {
+  A3 a[kScoreDepth / 8];
+#pragma unroll
+  for (int j = 0; j < kScoreDepth / 8; ++j)
+    a_tile<HD>(a[j], x, wr, kk + 8 * j);
+#pragma unroll
+  for (int n = 0; n < BS / 8; ++n) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kScoreDepth / 8; ++j) {
+      B3 bb;
+      b_rows<HD>(bb, y, n * 8, kk + 8 * j);
+      mma3(t, a[j], bb);
+    }
+    add_rn(acc[n], t);
+  }
+}
+
+// acc += C Y: C the warp's 16 x BS product (accumulator fragments), Y the
+// pre-split streamed tile's BS rows at the warp's AW columns [wc, wc + AW),
+// each 16 rows of Y through a fresh fragment
+template <int HD, int BS, int AW>
+__device__ __forceinline__ void acc_product(float (&acc)[AW / 8][4],
+                                            const float (&c)[BS / 8][4],
+                                            const float2* y, int wc) {
+  static_assert(BS % 16 == 0, "16-row k-steps");
+  A3 a[BS / 8];
+#pragma unroll
+  for (int kq = 0; kq < BS / 8; ++kq) acc_as_a(a[kq], c[kq]);
+#pragma unroll
+  for (int n = 0; n < AW / 8; ++n)
+#pragma unroll
+    for (int k2 = 0; k2 < BS / 16; ++k2) {
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kq = 2 * k2; kq < 2 * k2 + 2; ++kq) {
+        B3 bb;
+        b_rows2<HD>(bb, y, kq * 8, wc + n * 8);
+        mma3(t, a[kq], bb);
+      }
+      add_rn(acc[n], t);
+    }
 }
 
 }  // namespace fm

@@ -27,6 +27,7 @@ LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0, "moe_gemm": 0,
             "flash_attention_bwd": 0}
 HEAD_DIMS = (32, 64, 128, 256)
 RWKV6_HEAD_DIMS = (32, 64)  # WKV6 head sizes the scan kernel takes
+RWKV6_CHUNK = 32  # tokens a chunk of the WKV6 kernel (csrc/rwkv6_scan.cu)
 DECODE_MAX_GROUP = 16  # query heads per kv head the decode kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -397,6 +398,44 @@ def rglru_scan(x, a_log, gate, h0):
     return out, h_fin
 
 
+class _Wkv6Sync:
+    """The WKV6 kernel's chunk-order bookkeeping on one device: a tile
+    counter that every block of a multi-chunk launch advances once (``taken``
+    blocks so far), and a flag per (row, head, chunk) that the chunk's block
+    sets to the launch's ``epoch`` once its state pair is written, so no
+    flag needs clearing between launches.  The device's launches run in
+    the order they are issued (the current stream), so each one's blocks
+    take the tiles after the ``taken`` of those before it."""
+
+    def __init__(self, device, n_flags: int):
+        self.tiles = torch.zeros(1, dtype=torch.int64, device=device)
+        self.flags = torch.zeros(n_flags, dtype=torch.int32, device=device)
+        self.taken = 0
+        self.epoch = 0
+
+
+_WKV6_SYNC = {}
+
+
+def _wkv6_sync(device, n_flags: int) -> _Wkv6Sync:
+    """The device's bookkeeping for a launch of ``n_flags`` chunk blocks,
+    its epoch advanced (fresh buffers where the flags are too few, or the
+    epoch would wrap)."""
+    sync = _WKV6_SYNC.get(device)
+    if sync is None or sync.flags.numel() < n_flags \
+            or sync.epoch >= 2 ** 31 - 1:
+        sync = _WKV6_SYNC[device] = _Wkv6Sync(device, n_flags)
+    sync.epoch += 1
+    return sync
+
+
+def rwkv6_scratch_floats(B: int, H: int, S: int, D: int) -> int:
+    """f32 scratch the WKV6 kernel takes for (B, H, S, D) inputs: for each
+    (row, head), each chunk but the last its state contribution (D x D)
+    and decay (D); 0 when S fits one chunk."""
+    return B * H * (-(-S // RWKV6_CHUNK) - 1) * (D * D + D)
+
+
 def rwkv6_scan(r, k, v, w_log, u, state0=None):
     """WKV6 from ``state0`` (zeros when None, which is the Pallas
     ``rwkv6_scan``; a state is what ``rwkv6_apply`` folds in):
@@ -427,7 +466,9 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
              f"{name}: head size {D} not in {RWKV6_HEAD_DIMS}")
     _require(S >= 1 and B <= 65535 and H <= 65535,
              f"{name}: empty or too many rows: {tuple(r.shape)}")
-    uu = u.float().expand(B, H, 1, D)[:, :, 0]  # strides 0 where broadcast
+    if u.dtype not in (torch.float32, r.dtype):
+        u = u.float()
+    uu = u.expand(B, H, 1, D)[:, :, 0]  # strides 0 where broadcast
     if state0 is not None:
         _require(state0.shape == (B, H, D, D),
                  f"{name}: state0 {tuple(state0.shape)} is not "
@@ -439,6 +480,11 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
     s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     s0 = (None, 0, 0, 0) if state0 is None else (
         state0.data_ptr(), *state0.stride()[:3])
+    n_part = rwkv6_scratch_floats(B, H, S, D)
+    part = torch.empty(n_part, dtype=torch.float32, device=r.device) \
+        if n_part else None
+    sync = _wkv6_sync(r.device, B * H * -(-S // RWKV6_CHUNK)) if n_part \
+        else None
     lib = build.load(name)
     rc = lib.rwkv6_scan_launch(
         _DTYPE_CODE[r.dtype], D, B, H, S,
@@ -449,9 +495,16 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
         uu.data_ptr(), uu.stride(0), uu.stride(1),
         *s0,
         out.data_ptr(), *out.stride()[:3],
-        s_out.data_ptr(),
+        s_out.data_ptr(), None if part is None else part.data_ptr(),
+        *((None, 0, None, 0) if sync is None else
+          (sync.tiles.data_ptr(), sync.taken, sync.flags.data_ptr(),
+           sync.epoch)),
+        int(uu.dtype == torch.float32),
+        int(state0 is not None and _aligned16(state0)),
         torch.cuda.current_stream(r.device).cuda_stream)
     _launched(name, rc)
+    if sync is not None:
+        sync.taken += n_part // (D * D + D) + B * H  # every chunk's block
     return out, s_out
 
 

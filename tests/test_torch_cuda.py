@@ -464,6 +464,83 @@ def test_rwkv6_scan_kernel_matches_plain(cuda, BH, S, D, dtype, with_state):
     torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
 
 
+def _rwkv6_on_card(case, dtype, cuda, with_state):
+    """A ``rwkv6_case`` as strided (1, BH, S, D) views on the card."""
+    r, k, v, w, u, s0 = case
+    tr, tk, tv = (_wide(t, dtype, cuda)[None] for t in (r, k, v))
+    tw, tu = (_wide(t, torch.float32, cuda)[None] for t in (w, u))
+    ts0 = _wide(s0, torch.float32, cuda)[None] if with_state else None
+    return tr, tk, tv, tw, tu, ts0
+
+
+@pytest.mark.parametrize("S", [1, 31, 33, 100, 128, 512])
+@pytest.mark.parametrize("BH", [1, 32, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_scan_chunks_match_plain(cuda, S, BH, dtype, with_state):
+    """The chunked kernel at one chunk and less (S 1, 31), a ragged last
+    chunk (33, 100), whole chunks (128, 512: the folds of up to 15 earlier
+    chunks' states), one to 512 (row, head) pairs, zero or nonzero state0:
+    one launch, against the per-timestep plain version."""
+    args = _rwkv6_on_card(rwkv6_case(BH, S, 64, seed=S + BH), dtype, cuda,
+                          with_state)
+    before = ops.LAUNCHES["rwkv6_scan"]
+    o, s = ops.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rwkv6_scan"] == before + 1
+    assert o.dtype == dtype and s.dtype == torch.float32
+    want_o, want_s = ref.rwkv6_scan(*args)
+    _assert_close(o, want_o, dtype)
+    torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+
+
+def _wkv64(r, k, v, w, u, s0):
+    """Per-timestep WKV6 in float64 on (BH, S, D) inputs: (out, state)."""
+    r, k, v, w, u, st = (x.double() for x in (r, k, v, w, u, s0))
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("bd,bde->be", r[:, t], st + u[:, 0, :, None]
+                                 * kv))
+        st = st * torch.exp(w[:, t])[..., None] + kv
+    return torch.stack(outs, 1), st
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+@pytest.mark.parametrize("D", [32, 64])
+def test_rwkv6_scan_chunks_at_extreme_decays(cuda, decay, D):
+    """Every third token's log decay at -20 (the state all but wiped: a
+    factorisation through e^{-L} would overflow f32 within a chunk), or
+    every log decay near -1e-3 (the state carried across all 16 chunks of
+    S 512, its entries growing to tens): out and state finite; with strong
+    decays, within _assert_close of the per-token plain version; and each
+    as close to float64 (of the largest |value|) as the chunked plain form
+    the model's plain path runs (the pairwise form in f32 that the kernel
+    and the Pallas kernel compute), within 3x.  (With weak decays the f32
+    sums of both forms part by more than 1e-4 from the per-token ones.)"""
+    from repro_torch.models import ssm
+    r, k, v, w, u, s0 = rwkv6_case(32, 512, D, seed=D)
+    if decay == "strong":
+        w[:, ::3] = -20.0
+    else:
+        w = w * 1e-3
+    args = _rwkv6_on_card((r, k, v, w, u, s0), torch.float32, cuda, True)
+    o, s = ops.rwkv6_scan(*args)
+    assert torch.isfinite(o).all() and torch.isfinite(s).all()
+    if decay == "strong":
+        want_o, want_s = ref.rwkv6_scan(*args)
+        _assert_close(o, want_o, torch.float32)
+        torch.testing.assert_close(s, want_s, rtol=1e-4, atol=1e-4)
+    tr, tk, tv, tw, tu, ts0 = args
+    chunked = ssm.rwkv6_scan_chunked(tr, tk, tv, tw, tu[0, :, 0], ts0)
+    want = _wkv64(*(x[0] for x in args))
+    for got, plain, x in zip((o, s), chunked, want):
+        err = (got[0].double() - x).abs().max().item()
+        plain_err = (plain[0].double() - x).abs().max().item()
+        assert err <= 3 * plain_err + 1e-7 * x.abs().max().item(), \
+            (err, plain_err)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_scan_kernel_takes_the_model_head_split(cuda, dtype):
     """(B, S, H, D) -> (B, H, S, D) transposed views and a per-head u of
@@ -616,6 +693,28 @@ def test_flash_bwd_kernel_ragged_tiles(cuda, dtype, S, hd, G, window):
     for got, rep, w in zip(grads, again, wants):
         assert torch.equal(got, rep)
         _assert_close(got, w, dtype)
+
+
+@pytest.mark.parametrize("window", [None, 77])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [40, 100, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_kernel_ragged_tiles(cuda, dtype, S, hd, G, window):
+    """The forward kernel at lengths that are no multiple of its 64-row
+    query tiles (32 at head_dim 256) or its 32-row key tiles, one and three
+    query heads a kv head, causal and windowed, every head_dim: one launch,
+    out and lse against the plain version."""
+    q, k, v, _ = _flash_case((1, 2 * G, 2, S, S, hd, window), dtype, cuda,
+                             seed=S + hd + G)
+    before = ops.LAUNCHES["flash_attention"]
+    out, lse = ops.flash_attention(q, k, v, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    want, want_lse = ref.flash_attention_lse(q, k, v, window=window)
+    assert out.dtype == dtype and out.stride() == q.stride()
+    _assert_close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
 
 
 def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):

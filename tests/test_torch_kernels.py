@@ -397,6 +397,42 @@ def test_scan_wrappers_raise_off_cpu_without_kernel():
         ops.rwkv6_scan(r, r, r, r, r[:, :1])
 
 
+
+@pytest.mark.parametrize("S,chunks", [(1, 1), (31, 1), (32, 1), (33, 2),
+                                      (128, 4), (512, 16), (513, 17)])
+def test_rwkv6_scratch_holds_every_chunk_but_the_last(S, chunks):
+    """The WKV6 kernel's scratch: per (row, head), a (D x D) state
+    contribution and a D decay for every 32-token chunk but the last, none
+    when S fits one chunk; its chunk is the Pallas kernel's and the plain
+    model path's."""
+    import inspect
+    from repro_torch.models import ssm
+    B, H, D = 2, 3, 64
+    assert ops.rwkv6_scratch_floats(B, H, S, D) == \
+        B * H * (chunks - 1) * (D * D + D)
+    for fn in (jops.rwkv6_scan, ssm.rwkv6_scan_chunked):
+        assert inspect.signature(fn).parameters["chunk"].default == \
+            ops.RWKV6_CHUNK
+
+
+def test_rwkv6_sync_epochs_and_buffers():
+    """The WKV6 kernel's chunk-order bookkeeping: each launch a new epoch
+    on the same buffers while they hold enough flags; more flags than they
+    hold (or an epoch at the int32 limit) start fresh zeroed buffers."""
+    dev = torch.device("cpu")
+    ops._WKV6_SYNC.pop(dev, None)
+    a = ops._wkv6_sync(dev, 64)
+    assert (a.epoch, a.taken, a.flags.numel()) == (1, 0, 64)
+    a.taken = 64
+    b = ops._wkv6_sync(dev, 32)
+    assert b is a and (b.epoch, b.taken) == (2, 64)
+    c = ops._wkv6_sync(dev, 65)
+    assert c is not a and (c.epoch, c.taken, c.flags.numel()) == (1, 0, 65)
+    assert not c.flags.any() and not c.tiles.any()
+    c.epoch = 2 ** 31 - 1
+    assert ops._wkv6_sync(dev, 8).epoch == 1
+    ops._WKV6_SYNC.pop(dev)
+
 # -- contiguous flash attention and its gradient ------------------------------
 # The plain versions (what ops.flash_attention / ops.flash_attention_bwd run
 # for CPU tensors, and what the CUDA kernels are held to on the card) against

@@ -39,6 +39,13 @@ of 25 CUDA-event runs, the L2 flushed by a 64 MB ``zero_`` before each):
   fresh fragment every 16 deep, expf; then the times of knock-outs of its
   parts (wrong results: timing only), its two kernels' device times, and
   SDPA's backward;
+* ``fwd_precision``: the training flash attention forward at the same
+  shape: out and lse of the plain f32 version and of the kernel against
+  the same function in float64 (as ``bwd_precision``), with each one's
+  time, for the kernel as built (3xTF32) and for edited copies: 1xTF32,
+  the three products added straight into the sum, S through a fresh
+  fragment every 16 deep, 32-row key tiles; then the times of knock-outs
+  of its parts (timing only) and SDPA's forward;
 * ``moe``: the bf16 expert GEMM at qwen2-moe-a2.7b's decode (gate / up and
   down) and prefill (C 42) shapes: the f32 sums of the kernel as built
   (CUDA cores) and of the tensor-core variant (``tools/moe_gemm_mma.cu``,
@@ -46,7 +53,19 @@ of 25 CUDA-event runs, the L2 flushed by a 64 MB ``zero_`` before each):
   share of bf16 outputs that differ from the plain version's; the times of
   each, of the kernel with 32-deep bf16 slices and of the tensor-core
   variant's other ring and slice depths, beside ``torch.bmm``; then the MoE
-  serve's tokens (as ``gaps``) for each form.
+  serve's tokens (as ``gaps``) for each form;
+* ``rwkv6``: the WKV6 scan at ``chip_smoke.py``'s cases (rwkv6-1.6b's
+  512- and 128-token prefills of one row, a decode step at B 16) as built,
+  built for three blocks an SM, and with knock-outs of its parts (timing only): the fold of the earlier
+  chunks' states, the pairwise weights, the wait for the earlier chunks'
+  pairs; then each case's device time by kernel; and the precision against
+  float64 at extreme decays of the kernel, its (hi, lo) variant and both
+  plain forms (``rwkv6_precision``);
+* ``rwkv6_gate``: the rwkv6-1.6b serve through the WKV6 kernel as built and
+  through sound variants of its arithmetic (L as (hi, lo) pairs, from
+  ``tools/rwkv6_scan_pair_l.cu``; exp2f for ex2.approx): the bf16 gate's
+  two numbers (the kernel path's largest gap, the plain path's own noise
+  floor) and the f32 serve's exact tokens and largest gap.
 
 Each line names the case and prints one number per setting.  Run all
 sections, or name some: ``python3 tools/attention_sweep.py precision gaps``.
@@ -112,23 +131,24 @@ PRECISION = [
          "      add4(st.o[2 * dt + 1], t1);\n", "")])]
 
 
-# edits of the backward's 3xTF32 product (flash_mma.cuh) and tiles
+# edits of the 3xTF32 products (flash_mma.cuh: both flash kernels are built
+# from them) and of the backward's tiles
+ONE_TF32 = [("flash_mma.cuh",
+             "  mma_tf32(t, a.lo, b.hi[0], b.hi[1]);\n"
+             "  mma_tf32(t, a.hi, b.lo[0], b.lo[1]);\n", "")]
+STRAIGHT = [("flash_mma.cuh", "mma3(t, a[j], bb);", "mma3(acc[n], a[j], bb);"),
+            ("flash_mma.cuh", "mma3(t, a[kq], bb);",
+             "mma3(acc[n], a[kq], bb);"),
+            ("flash_mma.cuh", "add_rn(acc[n], t);", "")]
+FRESH16 = [("flash_mma.cuh", "constexpr int kScoreDepth = 32;",
+            "constexpr int kScoreDepth = 16;")]
 BWD_VARIANTS = [
-    ("1xTF32", [("flash_mma.cuh",
-                 "  mma_tf32(t, a.lo, b.hi[0], b.hi[1]);\n"
-                 "  mma_tf32(t, a.hi, b.lo[0], b.lo[1]);\n", "")]),
-    ("3xTF32 straight into the sum", [
-        ("flash_attention_bwd.cu", "fm::mma3(t, a[j], bb);",
-         "fm::mma3(acc[n], a[j], bb);"),
-        ("flash_attention_bwd.cu", "fm::mma3(t, a[kq], bb);",
-         "fm::mma3(acc[n], a[kq], bb);"),
-        ("flash_attention_bwd.cu", "fm::add_rn(acc[n], t);", "")]),
+    ("1xTF32", ONE_TF32),
+    ("3xTF32 straight into the sum", STRAIGHT),
     ("32-row streamed tiles", [("flash_attention_bwd.cu",
                                 "static constexpr int BS = 16;",
                                 "static constexpr int BS = 32;")]),
-    ("S and dP through a fresh fragment every 16 deep", [
-        ("flash_attention_bwd.cu", "constexpr int kScoreDepth = 32;",
-         "constexpr int kScoreDepth = 16;")]),
+    ("S and dP through a fresh fragment every 16 deep", FRESH16),
     ("expf for exp2f", [
         ("flash_attention_bwd.cu",
          "(s[n][e] * a.scale - ls[il]) * kLog2e;\n"
@@ -140,7 +160,10 @@ BWD_VARIANTS = [
          "        const float p = ok ? exp2f(x)",
          "(s[n][e] * a.scale - lse_r[r]);\n"
          "        const float p = ok ? expf(x)")])]
-# knock-outs of the backward's parts (wrong results: timing only)
+# knock-outs of the flash kernels' parts (wrong results: timing only)
+NO_SPLIT = ("flash_mma.cuh",
+            "void split_own(float2* dst, const float* raw) {",
+            "void split_own(float2* dst, const float* raw) {\n  return;")
 NO_SCORES = ("flash_attention_bwd.cu",
              "for (int kk = 0; kk < HD; kk += kScoreDepth) {",
              "for (int kk = 0; kk < 0; kk += kScoreDepth) {")
@@ -152,11 +175,44 @@ BWD_PARTS = [
                  "ok ? x : 0.f;")]),  # both kernels
     ("no S and dP products", [NO_SCORES]),
     ("no dV, dK and dQ products", NO_PRODUCTS),
-    ("no streamed-tile split", [
-        ("flash_mma.cuh",
-         "void split_own(float2* dst, const float* raw) {",
-         "void split_own(float2* dst, const float* raw) {\n  return;")]),
+    ("no streamed-tile split", [NO_SPLIT]),
     ("loads, split and masks only", [NO_SCORES] + NO_PRODUCTS)]
+# edits of the forward (flash_attention.cu): its products' precision as the
+# backward's, and 32-row key tiles; then knock-outs of its parts
+FWD_VARIANTS = [
+    ("1xTF32", ONE_TF32),
+    ("3xTF32 straight into the sum", STRAIGHT),
+    ("S through a fresh fragment every 16 deep", FRESH16),
+    ("32-row key tiles", [("flash_attention.cu",
+                           "static constexpr int BS = 16;",
+                           "static constexpr int BS = 32;")])]
+FWD_NO_S = ("flash_attention.cu",
+            "for (int kk = 0; kk < HD; kk += kScoreDepth)\n",
+            "for (int kk = 0; kk < 0; kk += kScoreDepth)\n")
+FWD_NO_PV = ("flash_attention.cu", "    acc_product<HD, BS, AW>(acc, s,",
+             "    if (0) acc_product<HD, BS, AW>(acc, s,")
+FWD_PARTS = [
+    ("no exp", [("flash_attention.cu",
+                 "const float p = exp2f(s[n][e] - base[e >> 1]);",
+                 "const float p = s[n][e] - base[e >> 1];")]),
+    ("no S product", [FWD_NO_S]),
+    ("no PV product", [FWD_NO_PV]),
+    ("no key-tile split", [NO_SPLIT]),
+    ("loads, split, masks and softmax only", [FWD_NO_S, FWD_NO_PV])]
+# a variant of the WKV6 kernel (three blocks an SM: at most 42 registers a
+# thread), then knock-outs of its parts (wrong results: timing only)
+RWKV_VARIANTS = [("3 blocks an SM", [
+    ("rwkv6_scan.cu", "__launch_bounds__(8 * D) wkv6_kernel",
+     "__launch_bounds__(8 * D, 3) wkv6_kernel")])]
+RWKV_PARTS = [
+    ("no fold of the earlier chunks' states", [
+        ("rwkv6_scan.cu", "for (int j2 = 0; j2 < c; ++j2) {",
+         "for (int j2 = 0; j2 < 0; ++j2) {")]),
+    ("no pairwise weights", [
+        ("rwkv6_scan.cu", "    if (t < n) {\n      // row t's r",
+         "    if (false) {\n      // row t's r")]),
+    ("no wait for the earlier chunks' pairs", [
+        ("rwkv6_scan.cu", "while (*f != a.epoch) {", "while (false) {")])]
 # edits of the bf16 expert GEMM: TC builds the tensor-core variant in
 # place of moe_gemm.cu, in three accumulation forms and with other ring and
 # slice depths; with out_f32 a build writes its f32 sums instead of rounding
@@ -292,13 +348,13 @@ def flush_compare(gen):
         log(line)
 
 
-def variant_lib(tag, edits, name="flash_attention_pool"):
-    """Kernel ``name`` built from a copy of the sources with ``edits``:
+def _variant_dir(tag, edits):
+    """A copy of the kernel sources in ``build/sweep/`` with ``edits``:
     (file, text, replacement), or (file, None, path) to put the file at
     ``path`` in its place."""
     from repro_torch.kernels import build
     d = os.path.join(ROOT, "build", "sweep", tag.replace(" ", "_")
-                     .replace(",", ""))
+                     .replace(",", "").replace("'", ""))
     if not os.path.isdir(d):
         shutil.copytree(build.CSRC, d)
         for fname, a, b in edits:
@@ -312,14 +368,37 @@ def variant_lib(tag, edits, name="flash_attention_pool"):
                 raise AssertionError(f"{tag}: {a!r} not in {fname}")
             with open(p, "w") as f:
                 f.write(src.replace(a, b))
-    so = os.path.join(d, f"{name}.so")
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", so,
-                    os.path.join(d, f"{name}.cu")], check=True)
-    lib = ctypes.CDLL(so)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = build.ARGTYPES[f"{name}_launch"]
-    fn.restype = ctypes.c_int
-    return lib
+    return d
+
+
+def variant_libs(specs, name):
+    """{tag: kernel ``name`` built from the copy of the sources with its
+    edits (_variant_dir)} for each (tag, edits) of ``specs``, one ``nvcc``
+    each, all started together."""
+    from repro_torch.kernels import build
+    procs = {}
+    for tag, edits in specs:
+        d = _variant_dir(tag, edits)
+        so = os.path.join(d, f"{name}.so")
+        procs[tag] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", so,
+             os.path.join(d, f"{name}.cu")]), so)
+    libs = {}
+    for tag, (proc, so) in procs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for {name} [{tag}]")
+        lib = ctypes.CDLL(so)
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = build.ARGTYPES[f"{name}_launch"]
+        fn.restype = ctypes.c_int
+        libs[tag] = lib
+    return libs
+
+
+def variant_lib(tag, edits, name="flash_attention_pool"):
+    """Kernel ``name`` built from a copy of the sources with ``edits``
+    (_variant_dir)."""
+    return variant_libs([(tag, edits)], name)[tag]
 
 
 def with_libs(libs, run):
@@ -440,6 +519,60 @@ def gaps(libs):
             f"{worst:.4f}")
 
 
+# sound variants of the WKV6 kernel's arithmetic, for the rwkv6 serve's
+# bf16 gate: L kept as (hi, lo) pairs (tools/rwkv6_scan_pair_l.cu, built in
+# place of rwkv6_scan.cu), and exp2 to libdevice's precision
+PAIR_L = ("rwkv6_scan.cu", None,
+          os.path.join(ROOT, "tools", "rwkv6_scan_pair_l.cu"))
+EX2F = ("rwkv6_scan.cu", """  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;""", "  return exp2f(x);")
+RWKV_FORMS = [("L as (hi, lo) pairs", [PAIR_L]), ("exp2f", [EX2F])]
+
+
+def rwkv6_gate():
+    """The rwkv6-1.6b serve of chip_smoke.py through the WKV6 kernel as
+    built and through each of RWKV_FORMS: in bf16 the kernel path's largest
+    gap under the plain path and the plain path's own noise floor on the
+    same served tokens (chip_smoke.bf16_gate's two numbers), and the f32
+    serve's tokens (chip_smoke.f32_token_check's)."""
+    import numpy as np
+    from repro_torch.models import init_params
+    libs = [("as built", None)] + list(variant_libs(
+        [(f"rwkv6 {t}", e) for t, e in RWKV_FORMS], "rwkv6_scan").items())
+    cfg, params = cs._init(cs.RWKV_ARCH)
+    params32 = init_params(cfg, seed=cs.SEED, dtype=torch.float32,
+                           device="cuda")
+    for tag, lib in libs:
+        def run():
+            out = {}
+            for dtype, p in ((torch.bfloat16, params),
+                             (torch.float32, params32)):
+                flows = cs.make_flows(cfg, 6, cs.OUT_TOKENS,
+                                      np.random.default_rng(cs.SEED))
+                eng, _, _, _, _, chunks = cs.serve(cfg, p, flows,
+                                                   device="cuda",
+                                                   dtype=dtype)
+                exact, total, worst = cs.plain_check(
+                    cfg, p, eng, flows, chunks, dtype=dtype, gate=False)
+                floor = cs.plain_disagreement(cfg, params, params32, eng,
+                                              flows, chunks)[0] \
+                    if dtype == torch.bfloat16 else None
+                out[dtype] = (exact, total, worst, floor)
+                del eng
+                cs._release()
+            return out
+        out = with_libs({"rwkv6_scan": lib} if lib else {}, run)
+        e, n, worst, floor = out[torch.bfloat16]
+        e32, n32, worst32, _ = out[torch.float32]
+        log(f"[rwkv6_gate] {tag}: bf16 {e}/{n} exact, largest gap "
+            f"{worst:.4f}, plain noise floor {floor:.4f} (gate "
+            f"{floor + cs.LOGIT_MARGIN:.4f}: "
+            + ("held" if worst <= floor + cs.LOGIT_MARGIN else "missed")
+            + f"); f32 {e32}/{n32} exact, largest gap {worst32:.4f} (margin "
+            f"{cs.LOGIT_MARGIN})")
+
+
 def _bwd64(q, k, v, d_out, window):
     """dq, dk, dv of causal (windowed) GQA attention in float64."""
     hd, G = q.shape[-1], q.shape[1] // k.shape[1]
@@ -498,6 +631,116 @@ def bwd_precision(gen):
     log(f"[bwd_precision] {name} SDPA backward: {ms:.4f} ms")
 
 
+def _fwd64(q, k, v, window):
+    """out and lse of causal (windowed) GQA attention in float64."""
+    hd, G = q.shape[-1], q.shape[1] // k.shape[1]
+    kd, vd = (x.double().repeat_interleave(G, 1) for x in (k, v))
+    ok = cs.flash_mask(q.shape[2], k.shape[2], window)
+    s = torch.where(ok, torch.einsum("bhqd,bhkd->bhqk", q.double(), kd)
+                    / hd ** 0.5, -1e30)
+    return (torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vd),
+            torch.logsumexp(s, -1))
+
+
+def fwd_precision(gen):
+    from repro_torch.kernels import ops, ref
+    name, (q, k, v, _), kw = cs.flash_cases(gen)[0]
+    window = kw["window"]
+    want, want_lse = _fwd64(q, k, v, window)
+
+    def line(tag, fn, reps=25):
+        out, lse = fn()
+        log(f"[fwd_precision] {name} {tag}: out {_rel(out, want)}; lse "
+            f"{_rel(lse, want_lse)}; {cs.time_ms(fn, reps=reps):.4f} ms")
+
+    def kernel():
+        return ops.flash_attention(q, k, v, window=window, return_lse=True)
+    line("plain f32", lambda: ref.flash_attention_lse(q, k, v, window=window),
+         reps=10)
+    libs = variant_libs([(f"fwd {t}", e) for t, e in FWD_VARIANTS
+                         + FWD_PARTS], "flash_attention")
+    line("as built (3xTF32)", kernel)
+    for tag, _ in FWD_VARIANTS:
+        with_libs({"flash_attention": libs[f"fwd {tag}"]},
+                  lambda: line(tag, kernel))
+    for tag, _ in FWD_PARTS:  # where the time goes
+        ms = with_libs({"flash_attention": libs[f"fwd {tag}"]},
+                       lambda: cs.time_ms(kernel))
+        log(f"[fwd_precision] {name} {tag} (timing only): {ms:.4f} ms")
+    log(f"[fwd_precision] {name} SDPA forward: "
+        f"{cs.time_ms(lambda: cs._sdpa(q, k, v, window)):.4f} ms")
+
+
+def _wkv64(r, k, v, w, u, s0):
+    """Per-token WKV6 in float64 on (BH, S, D) inputs: (out, state)."""
+    r, k, v, w, u, st = (x.double() for x in (r, k, v, w, u, s0))
+    outs = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, None] * v[:, t, None, :]
+        outs.append(torch.einsum("bd,bde->be", r[:, t],
+                                 st + u[:, 0, :, None] * kv))
+        st = st * torch.exp(w[:, t])[..., None] + kv
+    return torch.stack(outs, 1), st
+
+
+def rwkv6_precision(gen):
+    """Max abs error against float64 (relative to the largest |value|) of
+    out and the final state at B H 32, S 512, D 64, f32, with every third
+    token's log decay at -20 (strong) or every log decay near -1e-3 (weak):
+    the kernel as built and with L as (hi, lo) pairs, the per-token plain
+    version (ref.rwkv6_scan) and the chunked plain form the model's plain
+    path runs (models/ssm.py rwkv6_scan_chunked)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import ssm
+    pair = variant_libs([(f"rwkv6 {RWKV_FORMS[0][0]}", RWKV_FORMS[0][1])],
+                        "rwkv6_scan")
+    BH, S, D = 32, 512, 64
+
+    def randn(*shape, scale):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    for decay in ("strong", "weak"):
+        r, k, v = (randn(1, BH, S, D, scale=0.5) for _ in range(3))
+        w = -torch.exp(randn(1, BH, S, D, scale=0.5))
+        if decay == "strong":
+            w[:, :, ::3] = -20.0
+        else:
+            w = w * 1e-3
+        u, s0 = randn(1, BH, 1, D, scale=0.3), randn(1, BH, D, D, scale=0.3)
+        want = _wkv64(r[0], k[0], v[0], w[0], u[0], s0[0])
+        forms = {
+            "kernel": lambda: ops.rwkv6_scan(r, k, v, w, u, s0),
+            "kernel, L as (hi, lo) pairs": lambda: with_libs(
+                {"rwkv6_scan": next(iter(pair.values()))},
+                lambda: ops.rwkv6_scan(r, k, v, w, u, s0)),
+            "per-token plain": lambda: ref.rwkv6_scan(r, k, v, w, u, s0),
+            "chunked plain": lambda: ssm.rwkv6_scan_chunked(
+                r, k, v, w, u[0, :, 0], s0)}
+        res = []
+        for tag, fn in forms.items():
+            o, st = fn()
+            errs = [((g[0].double() - x).abs().max() / x.abs().max()).item()
+                    for g, x in ((o, want[0]), (st, want[1]))]
+            res.append(f"{tag} out {errs[0]:.2e} state {errs[1]:.2e}")
+        log(f"[rwkv6_precision] {decay} decay: " + "; ".join(res))
+
+
+def rwkv6_sweep(gen):
+    from repro_torch.kernels import ops
+    cases = [(n, a) for n, a, _, _ in cs.rwkv6_cases(gen)]
+    libs = variant_libs(RWKV_VARIANTS + RWKV_PARTS, "rwkv6_scan")
+    parts = {t for t, _ in RWKV_PARTS}
+    for tag, lib in [("as built", None)] + list(libs.items()):
+        res = with_libs({"rwkv6_scan": lib} if lib else {}, lambda: [
+            f"{n} {cs.time_ms(lambda: ops.rwkv6_scan(*a)):.4f}"
+            for n, a in cases])
+        log(f"[rwkv6] {tag}" + (" (timing only)" if tag in parts else "")
+            + ": " + "; ".join(res) + " ms")
+    for n, a in cases:
+        _, rows = cs._device_times(lambda: ops.rwkv6_scan(*a))
+        log(f"[rwkv6] {n} as built, by kernel: " + "; ".join(
+            f"{k[:40]} {ms:.4f} ms" for k, ms in rows if "wkv6" in k))
+
+
 def _moe_f32(lib, x, w):
     """The bf16 expert GEMM of ``lib`` (an out_f32 build) on x, w: its f32
     sums (E, C, f)."""
@@ -551,7 +794,7 @@ def moe_sweep(gen):
 
 
 SECTIONS = ("decode", "pool", "flush", "variants", "precision", "gaps",
-            "bwd_precision", "moe")
+            "bwd_precision", "fwd_precision", "moe", "rwkv6", "rwkv6_gate")
 
 
 def main(argv=None):
@@ -559,7 +802,7 @@ def main(argv=None):
     smi = cs.device_phase()
     from repro_torch.kernels import build
     build.build(["decode_attention", "flash_attention_pool", "moe_gemm",
-                 "flash_attention_bwd"])
+                 "flash_attention", "flash_attention_bwd", "rwkv6_scan"])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
     if "decode" in want:
@@ -578,8 +821,15 @@ def main(argv=None):
             gaps(libs)
     if "bwd_precision" in want:
         bwd_precision(gen)
+    if "fwd_precision" in want:
+        fwd_precision(gen)
     if "moe" in want:
         moe_sweep(gen)
+    if "rwkv6" in want:
+        rwkv6_sweep(gen)
+        rwkv6_precision(gen)
+    if "rwkv6_gate" in want:
+        rwkv6_gate()
     log(smi)
 
 
