@@ -19,9 +19,11 @@ attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
 to the plain path in an f32 serve, and its bf16 serve beside serves with a
 planted WKV fault: see F32_TOKEN_CHECK), profiles one ``llama3.2-3b``, one
-``qwen2-moe-a2.7b`` and one ``rwkv6-1.6b`` prefill chunk and decode segment
-(the serving attention kernels', the expert GEMM's and the WKV6 scan's
-share of device time), and
+``qwen2-moe-a2.7b``, one ``recurrentgemma-9b`` and one ``rwkv6-1.6b``
+prefill chunk and decode segment (the serving attention kernels', the
+expert GEMM's and the scans' share of device time), holds the expert
+GEMM's outputs bitwise equal to the kernel it replaced
+(``tools/moe_gemm_fma.cu``, built beside it), and
 prints the kernel table as JSON and, as its last line, ``{"ok": true,
 "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
@@ -84,8 +86,8 @@ LOGIT_MARGIN = 0.25
 # whose power is shown by serves with a planted WKV fault (WKV_FAULTS), and
 # its served tokens to LOGIT_MARGIN itself in an f32 serve
 F32_TOKEN_CHECK = (RWKV_ARCH,)
-# the runs under torch.profiler: one training step, and one llama3.2-3b
-# and one qwen2-moe-a2.7b prefill chunk and decode segment.  The serves
+# the runs under torch.profiler: one training step, and one prefill chunk
+# and decode segment of each served model (profile_serving).  The serves
 # skip their profiled repeat (the trace's processing took 88-189 s a serve
 # on the H100, PERF.md), which keeps the script near half its time limit
 # the training phase: llama3.2-3b at full width in f32, a batch of
@@ -396,17 +398,61 @@ def moe_cases(gen):
     2048, expert d_ff 1408), bf16, x on the capacity slice of the (E, C+1,
     d) spill buffer as ``moe_ffn`` passes it: a 16-row decode pool (gate /
     up projection and down projection), a 512-token prefill bucket
-    (capacity int(512*4/60*1.25) = 42) and a single row."""
+    (capacity int(512*4/60*1.25) = 42), a single row, and the decode pool
+    as a served call fills it: 16 rows of top-4 routing over 60 experts
+    give an expert ~1 token, so each expert's rows past its 1-2 tokens
+    (drawn from the seed) are zero, as ``moe_ffn`` leaves its unfilled
+    slots.  Then the calls on each side of the kernel's C cuts (launch_c),
+    rows filled as routed (MOE_ROUTED): an 8-row decode pool, and the
+    serve's prefill pieces of 32, 64, 128 and 256 tokens (C 2, 5, 10,
+    21)."""
     E = 60
     cases = []
-    for name, C, d, f in [("decode C=16 d=2048 f=1408", 16, 2048, 1408),
-                          ("decode down C=16 d=1408 f=2048", 16, 1408, 2048),
-                          ("prefill C=42 d=2048 f=1408", 42, 2048, 1408),
-                          ("single row C=1 d=2048 f=1408", 1, 2048, 1408)]:
+    for name, C, d, f, fill in [
+            ("decode C=16 d=2048 f=1408", 16, 2048, 1408, None),
+            ("decode down C=16 d=1408 f=2048", 16, 1408, 2048, None),
+            ("prefill C=42 d=2048 f=1408", 42, 2048, 1408, None),
+            ("single row C=1 d=2048 f=1408", 1, 2048, 1408, None),
+            (MOE_SERVED, 16, 2048, 1408, "served")] + MOE_ROUTED:
         x = torch.randn((E, C + 1, d), generator=gen, device="cuda")
         w = torch.randn((E, d, f), generator=gen, device="cuda") * 0.02
+        if fill == "served":
+            n = torch.randint(1, 3, (E, 1, 1), generator=gen, device="cuda")
+            x = x * (torch.arange(C + 1, device="cuda")[:, None] < n)
+        elif fill:  # fill tokens, each routed to 4 experts at random
+            top = torch.rand((fill, E), generator=gen,
+                             device="cuda").topk(4, dim=1).indices
+            n = torch.bincount(top.flatten(), minlength=E).clamp_max(C)
+            x = x * (torch.arange(C + 1, device="cuda")[:, None]
+                     < n[:, None, None])
         cases.append((name, (x.bfloat16()[:, :C], w.bfloat16()), {}, False))
     return cases
+
+
+# (name, C, d, f, tokens routed): a decode pool of 8 rows and the serve's
+# prefill pieces of T tokens at capacity C = int(T 4/60 1.25)
+MOE_ROUTED = [("decode C=8 as routed d=2048 f=1408", 8, 2048, 1408, 8)] + [
+    (f"prefill T={T} C={C} as routed d=2048 f=1408", C, 2048, 1408, T)
+    for T, C in ((32, 2), (64, 5), (128, 10), (256, 21))]
+# the decode pool of the MoE serve as served: most rows zero
+MOE_SERVED = "decode C=16 as served d=2048 f=1408"
+# the expert GEMM the shipped one replaced, built beside it: each case's
+# outputs are held bitwise equal to its outputs, since the sum's rounding
+# is part of the MoE serve's tokens
+MOE_FMA_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "moe_gemm_fma.cu")
+
+
+def moe_fma(args, lib=None):
+    """``args`` through the replaced expert GEMM (uncounted), from its
+    library ``lib`` if given (a timed call passes it: the lookup is host
+    time)."""
+    from repro_torch.kernels import build, ops
+    out, rc = ops.moe_gemm_with(
+        lib or build.load_variant(MOE_FMA_SRC, "moe_gemm_launch"), *args)
+    if rc != 0:
+        raise RuntimeError(f"moe_gemm_fma: kernel launch failed ({rc})")
+    return out
 
 
 def moe_work(args, kw):
@@ -432,12 +478,13 @@ def rglru_cases(gen):
     ``ssm.rglru_block`` calls it: x and the input gate bf16, a_log f32
     (-8 softplus(lam) sigmoid(.) < 0), a nonzero f32 h0; a 512-token
     prefill chunk of one row, the serve's largest prefill bucket (128
-    tokens) and a 16-row decode step."""
+    tokens), a 16-row decode step, and 300 tokens (a ragged last chunk)."""
     W = 4096
     cases = []
     for name, B, S in [("prefill B=1 S=512 W=4096", 1, 512),
                        ("prefill B=1 S=128 W=4096", 1, 128),
-                       ("decode B=16 S=1 W=4096", 16, 1)]:
+                       ("decode B=16 S=1 W=4096", 16, 1),
+                       ("prefill B=1 S=300 W=4096", 1, 300)]:
         x = torch.randn((B, S, W), generator=gen, device="cuda").bfloat16()
         gate = torch.sigmoid(torch.randn((B, S, W), generator=gen,
                                          device="cuda")).bfloat16()
@@ -516,6 +563,33 @@ def rwkv6_skip(args):
     return r, k, v, w_log, u, state0
 
 
+def moe_bitwise_check(kfn, name, args):
+    """Hold the expert GEMM's bf16 outputs bitwise equal (``torch.equal``)
+    to the replaced kernel's on ``args``, and show the check's power: the
+    replaced kernel on the inputs with one zeroed d slice differs.  Returns
+    the replaced kernel's time for the kernel row."""
+    got = kfn(*args)
+    want = moe_fma(args)
+    faulty = moe_fma(moe_drop_slice(args))
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    caught = not torch.equal(got, faulty)
+    log(f"[check] {'moe_gemm':20s} {name:34s} bitwise equal to the replaced "
+        f"FMA kernel (tools/moe_gemm_fma.cu): {same}; with one zeroed "
+        f"{DROP_TILE}-wide d slice: {not caught}")
+    if not same:
+        n = (got != want).sum().item()
+        raise AssertionError(f"moe_gemm [{name}]: {n} outputs differ from "
+                             "the replaced kernel's")
+    if not caught:
+        raise AssertionError(f"moe_gemm [{name}]: the bitwise check would "
+                             "not catch one zeroed d slice")
+    from repro_torch.kernels import build
+    lib = build.load_variant(MOE_FMA_SRC, "moe_gemm_launch")
+    return dict(bitwise_equal_to_replaced=same,
+                replaced_ms=time_ms(lambda: moe_fma(args, lib)))
+
+
 def _flat(out):
     """A kernel's output(s) as one flat f32 vector."""
     outs = out if isinstance(out, tuple) else (out,)
@@ -565,6 +639,9 @@ def kernel_phase():
                 raise AssertionError(
                     f"{kname} [{name}]: the tolerance {tol} would not catch "
                     f"{fault_name} ({fault})")
+            extra_row = {}
+            if kname == "moe_gemm":
+                extra_row = moe_bitwise_check(kfn, name, args)
             ms = time_ms(lambda: kfn(*args, **kw))
             plain_ms = time_ms(lambda: rfn(*args, **kw), reps=20)
             lib_ms = None  # the scans: no one PyTorch call computes them
@@ -585,7 +662,8 @@ def kernel_phase():
             rows[(kname, name)] = dict(
                 max_abs_err=err, tol=tol, dropped_tile_err=fault, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                **extra_row)
             extra = ""
             if kname == "decode_attention":
                 n_split = decode_splits_of(args, kw)
@@ -865,51 +943,57 @@ def profile_train_step(cfg, params, toks):
 
 # the serving kernels' device-side names, summed in a serving profile: the
 # attention kernels (decode: the split kernel and its merge; prefill: the
-# tensor-core and the f32 pool kernels), the expert GEMM and the WKV6 scan
+# tensor-core and the f32 pool kernels), the expert GEMM and the scans
 PROFILED_KERNELS = {
     "attention": ("decode_mma_kernel", "decode_kernel", "merge_kernel",
                   "pool_mma_kernel", "flash_pool_kernel"),
     "moe_gemm": ("moe_",),
+    "rglru_scan": ("rglru_",),
     "rwkv6_scan": ("wkv6_",)}
-# tokens of the profiled prefill chunk: the 512-token chunk of the MoE and
-# llama serves, the 128-token bucket (the largest) of the rwkv6 serve
-PROFILE_CHUNK = {RWKV_ARCH: 128}
+# tokens of the profiled prefill chunks: the 512-token chunk of the llama
+# serve, that and the 128-token piece (the serve's most common) of the MoE
+# serve, the 128-token bucket (the largest) of the recurrent serves
+PROFILE_CHUNK = {MOE_ARCH: (512, 128), RG_ARCH: (128,), RWKV_ARCH: (128,)}
 
 
 def profile_serving(cfg, params):
     """Device time by kernel, and the serving kernels' share of it
-    (PROFILED_KERNELS), in one full-width prefill chunk (C tokens of one
-    row, PROFILE_CHUNK or 512, after three earlier chunks: the ring holding
-    3 C earlier positions) and one 8-step fused decode segment at B 16
-    (rows at 1024 positions, kv_limit 2048), each run once under the
-    profiler after a warm-up, through ``extend`` and ``decode_run`` with
-    ``kernel_backend="cuda"``."""
+    (PROFILED_KERNELS), in full-width prefill chunks (C tokens of one row
+    for each C of PROFILE_CHUNK, or 512, after three earlier chunks: the
+    ring holding 3 C earlier positions) and one 8-step fused decode
+    segment at B 16 (rows at 1024 positions, kv_limit 2048), each run once
+    under the profiler after a warm-up, through ``extend`` and
+    ``decode_run`` with ``kernel_backend="cuda"``."""
     from repro_torch.models import decode_run, extend, init_cache
     rng = np.random.default_rng(SEED + 2)
-    C = PROFILE_CHUNK.get(cfg.name, 512)
 
     def toks(*shape):
         return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).cuda()
-    one = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
-    prompt = toks(1, 4 * C)
-    for i in range(3):
-        extend(cfg, params, one, prompt[:, C * i:C * (i + 1)])
-    warm = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
-    extend(cfg, params, warm, prompt[:, :C])
-    del warm
-    pool = init_cache(cfg, params, POOL, MAX_LEN, torch.bfloat16)
+    chunks = PROFILE_CHUNK.get(cfg.name, (512,))
+    # the first chunk's prompt, then the pool's rows, then the others'
+    prompts = [toks(1, 4 * chunks[0])]
     rows = toks(POOL, 1024)
+    prompts += [toks(1, 4 * C) for C in chunks[1:]]
+    runs = []
+    for C, prompt in zip(chunks, prompts):
+        one = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
+        for i in range(3):
+            extend(cfg, params, one, prompt[:, C * i:C * (i + 1)])
+        warm = init_cache(cfg, params, 1, MAX_LEN, torch.bfloat16)
+        extend(cfg, params, warm, prompt[:, :C])
+        del warm
+        runs.append((f"prefill C={C}", lambda one=one, tail=prompt[:, 3 * C:]:
+                     extend(cfg, params, one, tail)))
+    pool = init_cache(cfg, params, POOL, MAX_LEN, torch.bfloat16)
     extend(cfg, params, pool, rows[:, :512])
     extend(cfg, params, pool, rows[:, 512:])
     last = rows[:, -1].to(torch.int32)
     active = torch.ones(POOL, dtype=torch.bool, device="cuda")
     decode_run(cfg, params, pool, last, active, 1, kv_limit=MAX_LEN)
     out = {}
-    for label, fn in [
-            (f"prefill C={C}", lambda: extend(cfg, params, one,
-                                              prompt[:, 3 * C:])),
-            (f"decode B={POOL} x 8 steps", lambda: decode_run(
-                cfg, params, pool, last, active, 8, kv_limit=MAX_LEN))]:
+    runs.append((f"decode B={POOL} x 8 steps", lambda: decode_run(
+        cfg, params, pool, last, active, 8, kv_limit=MAX_LEN)))
+    for label, fn in runs:
         wall, times = _device_times(fn)
         busy = sum(t for _, t in times)
         if busy <= 0:
@@ -931,7 +1015,7 @@ def profile_serving(cfg, params):
                           **{f"{k}_share": sum(v.values()) / busy
                              for k, v in by.items()},
                           top_ms={n[:90]: t for n, t in top})
-    del one, pool
+    del runs, pool
     _release()
     return out
 
@@ -1605,7 +1689,7 @@ def full_width_serve_phase(arch):
     the plain path."""
     cfg, params = _init(arch)
     stats = bf16_serve(cfg, params)
-    if arch in (MOE_ARCH, RWKV_ARCH):  # the expert GEMM's, the scan's share
+    if arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):  # the expert GEMM's, scans'
         stats["profile"] = profile_serving(cfg, params)
     if arch in F32_TOKEN_CHECK:
         del params
@@ -1649,7 +1733,7 @@ def main():
     smi = device_phase()
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    secs = build.build()
+    secs = build.build(variants=[MOE_FMA_SRC])
     log(f"[build] nvcc sm_90a from {build.CSRC}: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
         + f" (total {time.perf_counter() - t0:.1f} s)")

@@ -4,8 +4,12 @@ loaded with ``ctypes``.
 Each ``csrc/<name>.cu`` is compiled on first use, for ``sm_90a`` (Hopper),
 into ``build/kernels/<name>-<hash>.so`` at the root of the checkout, keyed
 by a hash of the sources (the ``.cu`` and the shared ``.cuh`` headers), so
-an edited source rebuilds and an unchanged one is loaded as built.  Nothing
-is built or imported when this module is imported.  A failed build raises.
+an edited source rebuilds and an unchanged one is loaded as built.  A
+variant kept outside ``csrc/`` (``tools/moe_gemm_fma.cu``, the expert GEMM
+that the shipped one is held bitwise equal to) builds the same way, with
+``csrc/`` on the include path (``build(variants=...)``, ``load_variant``).
+Nothing is built or imported when this module is imported.  A failed build
+raises.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ ARGTYPES = {
         [_I] * 4
         + [_P, _L, _L] * 3          # x, a_log, gate
         + [_P, _L]                  # h0
-        + [_P, _P]                  # out, h_final
+        + [_P, _P, _P]              # out, h_final, scratch
+        + [_P, _L, _P, _I]          # tile counter, tiles taken, flags, epoch
         + [_P],                     # stream
     "rwkv6_scan_launch":
         [_I] * 5
@@ -102,9 +107,9 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash(name: str) -> str:
+def _source_hash(src: Path) -> str:
     h = hashlib.sha256()
-    for p in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    for p in [src] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -112,24 +117,36 @@ def _source_hash(name: str) -> str:
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_source_hash(name)}.so"
+    return variant_path(CSRC / f"{name}.cu")
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns each compiled kernel's build
-    seconds (an already built one is absent).  Raises with the compiler's
-    output if any build fails."""
+def variant_path(src) -> Path:
+    """Where the library built from source file ``src`` goes (a kernel's
+    ``csrc/<name>.cu``, or a variant kept elsewhere that includes the
+    ``csrc/`` headers)."""
+    src = Path(src)
+    return BUILD_DIR / f"{src.stem}-{_source_hash(src)}.so"
+
+
+def build(names: Iterable[str] = KERNELS,
+          variants: Iterable = ()) -> Dict[str, float]:
+    """Compile every named kernel, and every variant source file in
+    ``variants``, that is not built yet, one ``nvcc`` per source, all
+    started together.  Returns each compiled source's build seconds (by
+    kernel name, or a variant's file stem; an already built one is
+    absent).  Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {name: CSRC / f"{name}.cu" for name in names}
+    jobs.update({Path(v).stem: Path(v) for v in variants})
     procs = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
+    for name, src in jobs.items():
+        out = variant_path(src)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -148,6 +165,27 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return secs
 
 
+def _open(path: Path, entry: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, entry)
+    fn.argtypes = ARGTYPES[entry]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load_variant(src, entry: str) -> ctypes.CDLL:
+    """The library built from variant source ``src`` (built first if
+    needed), its C entry point ``entry`` (one of ``ARGTYPES``) typed."""
+    key = str(src)
+    lib = _LIBS.get(key)
+    if lib is None:
+        path = variant_path(src)
+        if not path.exists():
+            build([], [src])
+        lib = _LIBS[key] = _open(path, entry)
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
@@ -155,9 +193,5 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build([name])
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = ARGTYPES[f"{name}_launch"]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = _open(path, f"{name}_launch")
     return lib

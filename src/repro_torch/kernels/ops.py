@@ -28,6 +28,8 @@ LAUNCHES = {"decode_attention": 0, "flash_attention_pool": 0, "moe_gemm": 0,
 HEAD_DIMS = (32, 64, 128, 256)
 RWKV6_HEAD_DIMS = (32, 64)  # WKV6 head sizes the scan kernel takes
 RWKV6_CHUNK = 32  # tokens a chunk of the WKV6 kernel (csrc/rwkv6_scan.cu)
+RGLRU_CHUNK = 16  # tokens a chunk of the RG-LRU kernel (kL, rglru_scan.cu)
+RGLRU_TILE_W = 128  # channels a block of the RG-LRU kernel (kTW)
 DECODE_MAX_GROUP = 16  # query heads per kv head the decode kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -325,6 +327,17 @@ def moe_gemm(x, w):
     C, d and f need not divide any tile."""
     if x.device.type == "cpu":
         return ref.moe_gemm(x, w)
+    out, rc = moe_gemm_with(build.load("moe_gemm"), x, w)
+    _launched("moe_gemm", rc)
+    return out
+
+
+def moe_gemm_with(lib, x, w, out_dtype=None):
+    """``moe_gemm`` on CUDA tensors through ``lib``, a library with the
+    expert GEMM's C entry point (the kernel, or a variant such as the one
+    the kernel is held bitwise equal to), into an output of ``out_dtype``
+    (x's by default).  Returns (out, the entry point's return code);
+    counts no launch."""
     name = "moe_gemm"
     _require(x.device.type == "cuda", f"{name}: no kernel for {x.device}")
     _require(w.device == x.device, f"{name}: w must be on {x.device}")
@@ -342,8 +355,7 @@ def moe_gemm(x, w):
              f"{tuple(w.shape)}")
     _require(x.stride(2) == 1 and w.stride(2) == 1,
              f"{name}: the last axis of x and w must have stride 1")
-    out = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
-    lib = build.load(name)
+    out = torch.empty((E, C, f), dtype=out_dtype or x.dtype, device=x.device)
     rc = lib.moe_gemm_launch(
         _DTYPE_CODE[x.dtype], E, C, d, f,
         x.data_ptr(), x.stride(0), x.stride(1),
@@ -351,8 +363,7 @@ def moe_gemm(x, w):
         out.data_ptr(), out.stride(0), out.stride(1),
         _aligned16(x), _aligned16(w),
         torch.cuda.current_stream(x.device).cuda_stream)
-    _launched(name, rc)
-    return out
+    return out, rc
 
 
 def rglru_scan(x, a_log, gate, h0):
@@ -385,6 +396,11 @@ def rglru_scan(x, a_log, gate, h0):
              f"{name}: the W axis must have stride 1")
     out = torch.empty((B, S, W), dtype=x.dtype, device=x.device)
     h_fin = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    n_part = rglru_scratch_floats(B, S, W)
+    part = torch.empty(n_part, dtype=torch.float32, device=x.device) \
+        if n_part else None
+    n_blocks = -(-S // RGLRU_CHUNK) * -(-W // RGLRU_TILE_W) * B
+    sync = _chunk_sync(name, x.device, n_blocks) if n_part else None
     lib = build.load(name)
     rc = lib.rglru_scan_launch(
         _DTYPE_CODE[x.dtype], B, S, W,
@@ -393,19 +409,33 @@ def rglru_scan(x, a_log, gate, h0):
         gate.data_ptr(), gate.stride(0), gate.stride(1),
         h0.data_ptr(), h0.stride(0),
         out.data_ptr(), h_fin.data_ptr(),
+        None if part is None else part.data_ptr(),
+        *((None, 0, None, 0) if sync is None else sync.args()),
         torch.cuda.current_stream(x.device).cuda_stream)
     _launched(name, rc)
+    if sync is not None:
+        sync.taken += n_blocks
     return out, h_fin
 
 
-class _Wkv6Sync:
-    """The WKV6 kernel's chunk-order bookkeeping on one device: a tile
-    counter that every block of a multi-chunk launch advances once (``taken``
-    blocks so far), and a flag per (row, head, chunk) that the chunk's block
-    sets to the launch's ``epoch`` once its state pair is written, so no
-    flag needs clearing between launches.  The device's launches run in
-    the order they are issued (the current stream), so each one's blocks
-    take the tiles after the ``taken`` of those before it."""
+def rglru_scratch_floats(B: int, S: int, W: int) -> int:
+    """f32 scratch the RG-LRU kernel takes for (B, S, W) inputs in chunks
+    of RGLRU_CHUNK tokens: for each row and channel, each chunk but the
+    last its pair (prod a_t, the chunk's h from 0); 0 when S fits one
+    chunk."""
+    return 2 * B * W * (-(-S // RGLRU_CHUNK) - 1)
+
+
+class _ChunkSync:
+    """A chunked scan kernel's chunk-order bookkeeping on one device
+    (``csrc/chunk_order.cuh``): a tile counter that every block of a
+    multi-chunk launch advances once (``taken`` blocks so far), and a flag
+    per (tile of the other axes, chunk) that the chunk's block sets to the
+    launch's ``epoch`` once its contribution is written, so no flag needs
+    clearing between launches.  The device's launches run in the order they
+    are issued (the current stream), so each one's blocks take the tiles
+    after the ``taken`` of those before it: one kernel's launches on a
+    device must share a stream, and none may be captured in a graph."""
 
     def __init__(self, device, n_flags: int):
         self.tiles = torch.zeros(1, dtype=torch.int64, device=device)
@@ -413,18 +443,30 @@ class _Wkv6Sync:
         self.taken = 0
         self.epoch = 0
 
+    def args(self):
+        """The C entry points' (tiles, tile_base, flags, epoch)."""
+        return (self.tiles.data_ptr(), self.taken, self.flags.data_ptr(),
+                self.epoch)
 
-_WKV6_SYNC = {}
+
+_CHUNK_SYNC = {}
 
 
-def _wkv6_sync(device, n_flags: int) -> _Wkv6Sync:
-    """The device's bookkeeping for a launch of ``n_flags`` chunk blocks,
-    its epoch advanced (fresh buffers where the flags are too few, or the
-    epoch would wrap)."""
-    sync = _WKV6_SYNC.get(device)
+def _chunk_sync(name: str, device, n_flags: int) -> _ChunkSync:
+    """Kernel ``name``'s bookkeeping on ``device`` for a launch of
+    ``n_flags`` chunk blocks, its epoch advanced (fresh buffers where the
+    flags are too few, or the epoch would wrap).  Each kernel keeps its
+    own."""
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        # the epoch and the tiles taken are launch arguments from the host:
+        # a replayed graph would reuse them stale (ROADMAP queue 1, item 13)
+        raise RuntimeError(f"{name}: the chunked kernel cannot be captured "
+                           "in a CUDA graph")
+    sync = _CHUNK_SYNC.get((name, device))
     if sync is None or sync.flags.numel() < n_flags \
             or sync.epoch >= 2 ** 31 - 1:
-        sync = _WKV6_SYNC[device] = _Wkv6Sync(device, n_flags)
+        sync = _CHUNK_SYNC[(name, device)] = _ChunkSync(device, n_flags)
     sync.epoch += 1
     return sync
 
@@ -483,8 +525,8 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
     n_part = rwkv6_scratch_floats(B, H, S, D)
     part = torch.empty(n_part, dtype=torch.float32, device=r.device) \
         if n_part else None
-    sync = _wkv6_sync(r.device, B * H * -(-S // RWKV6_CHUNK)) if n_part \
-        else None
+    sync = _chunk_sync(name, r.device, B * H * -(-S // RWKV6_CHUNK)) \
+        if n_part else None
     lib = build.load(name)
     rc = lib.rwkv6_scan_launch(
         _DTYPE_CODE[r.dtype], D, B, H, S,
@@ -496,9 +538,7 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
         *s0,
         out.data_ptr(), *out.stride()[:3],
         s_out.data_ptr(), None if part is None else part.data_ptr(),
-        *((None, 0, None, 0) if sync is None else
-          (sync.tiles.data_ptr(), sync.taken, sync.flags.data_ptr(),
-           sync.epoch)),
+        *((None, 0, None, 0) if sync is None else sync.args()),
         int(uu.dtype == torch.float32),
         int(state0 is not None and _aligned16(state0)),
         torch.cuda.current_stream(r.device).cuda_stream)

@@ -370,18 +370,19 @@ def test_moe_gemm_kernel_unaligned_rows(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_moe_gemm_rows_do_not_depend_on_capacity(cuda, dtype):
-    """Rows computed at C 1, 16 and 42 on the same inputs are bit-equal row
-    for row (elastic decode changes C, and the served tokens' exactness
-    must not depend on rounding): the kernel computes each output element
-    as one ascending fused multiply-add chain over d, whatever C and its C
-    tile (16, 32 or 64 rows)."""
+    """Rows computed at C 1, 10, 16, 21 and 42 on the same inputs are
+    bit-equal row for row (elastic decode changes C, and the served tokens'
+    exactness must not depend on rounding): the kernel computes each output
+    element as one ascending fused multiply-add chain over d, whatever C
+    and the kernel and layout it takes (the ring, the 16-row tile at C
+    9-15, four columns a lane at C 17-24)."""
     rng = np.random.default_rng(11)
     E, d, f = 5, 304, 200  # 16-byte rows (vector loads), ragged f tiles
     x = torch.from_numpy(rng.standard_normal((E, 43, d), np.float32))
     w = torch.from_numpy(rng.standard_normal((E, d, f), np.float32) * 0.05)
     x, w = x.to(cuda, dtype), w.to(cuda, dtype)
     full = ops.moe_gemm(x[:, :42], w)
-    for C in (1, 16):
+    for C in (1, 10, 16, 21):
         assert torch.equal(ops.moe_gemm(x[:, :C], w), full[:, :C]), C
     _assert_close(full, ref.moe_gemm(x[:, :42], w), dtype)
 
@@ -399,6 +400,86 @@ def test_moe_gemm_kernel_at_the_serve_shapes(cuda, d, f, C):
     w = (torch.randn((E, d, f), generator=g, device=cuda) * 0.02).bfloat16()
     got = ops.moe_gemm(x[:, :C], w)
     _assert_close(got, ref.moe_gemm(x[:, :C], w), torch.bfloat16)
+
+
+def _fma_kernel():
+    """The expert GEMM the shipped kernel replaced (tools/moe_gemm_fma.cu),
+    built beside it: the yardstick of its rounding."""
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+    src = Path(__file__).resolve().parents[1] / "tools" / "moe_gemm_fma.cu"
+    return build.load_variant(src, "moe_gemm_launch")
+
+
+def _fma(x, w):
+    out, rc = ops.moe_gemm_with(_fma_kernel(), x, w)
+    assert rc == 0
+    return out
+
+
+def _served_rows(x, rng, pattern):
+    """x with most rows zero, as a served call has them: per expert, the
+    first 1-2 rows live and the rest zero ("suffix"), or 1-2 live rows at
+    random places ("interleaved")."""
+    E, C = x.shape[:2]
+    keep = torch.zeros((E, C), dtype=torch.bool)
+    for e in range(E):
+        n = min(C, int(rng.integers(1, 3)))
+        rows = np.arange(n) if pattern == "suffix" else \
+            rng.choice(C, size=n, replace=False)
+        keep[e, torch.from_numpy(np.asarray(rows))] = True
+    return x.masked_fill_(~keep.to(x.device)[..., None], 0)
+
+
+@pytest.mark.parametrize("rows", ["dense", "suffix", "interleaved"])
+@pytest.mark.parametrize("C", [1, 2, 5, 8, 10, 16, 21, 42])
+@pytest.mark.parametrize("d,f", [(2048, 1408), (1408, 2048)])
+def test_moe_gemm_bit_equal_to_the_fma_kernel_at_the_serve_shapes(
+        cuda, d, f, C, rows):
+    """qwen2-moe-a2.7b's expert GEMMs at full width (60 experts, bf16, x on
+    the capacity slice of the spill buffer) at the serve's capacities
+    (decode pools of 1, 8 and 16 rows; prefill pieces at C 2, 5, 10, 21
+    and 42), every row live or most rows zero (suffix: as moe_ffn fills its
+    slots; interleaved): bitwise equal to the kernel it replaced, so the
+    served tokens cannot move (the skip of zero rows included)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(C + d)
+    E = 60
+    x = torch.randn((E, C + 1, d), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((E, d, f), generator=g, device=cuda) * 0.02).bfloat16()
+    x = x[:, :C]
+    if rows != "dense":
+        x = _served_rows(x, np.random.default_rng(C), rows)
+    got = ops.moe_gemm(x, w)
+    assert torch.equal(got, _fma(x, w))
+    if rows != "dense" and C > 2:
+        assert (got.float().abs().sum(-1) == 0).any()  # dead rows stay 0
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8, 9, 10, 15, 16, 17, 21, 24,
+                               25, 42, 64, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_moe_gemm_bit_equal_to_the_fma_kernel_ragged(cuda, C, dtype,
+                                                      aligned):
+    """Every kernel and layout the C table takes, each side of its cuts
+    (the ring at 1, 2, 4 and 8 rows; the 16-row tile at C 9-15; the ring's
+    2, 3 (four columns a lane), 4, 6 and 8 groups of 8 rows; two C tiles
+    past 64) with d and f that divide no slice or tile, on aligned rows
+    (16-byte copies) or unaligned ones (d and f odd: element loads), some
+    rows zero: bitwise equal to the kernel it replaced, in both dtypes."""
+    rng = np.random.default_rng(C + 7 * aligned)
+    E, d, f = (5, 208, 136) if aligned else (3, 37, 131)
+    x = rng.standard_normal((E, C + 1, d), np.float32)
+    x[:, 1::3] = 0.0  # zero rows interleaved with live ones
+    x = torch.from_numpy(x).to(cuda, dtype)[:, :C]
+    w = torch.from_numpy(rng.standard_normal((E, d, f), np.float32)
+                         * 0.05).to(cuda, dtype)
+    assert bool(ops._aligned16(x) and ops._aligned16(w)) == aligned
+    got = ops.moe_gemm(x, w)
+    assert torch.equal(got, _fma(x, w))
+    _assert_close(got, ref.moe_gemm(x, w), dtype)
 
 
 def test_moe_gemm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -440,6 +521,125 @@ def test_rglru_scan_kernel_matches_plain(cuda, B, S, W, dtype):
     want_h, want_f = ref.rglru_scan(tx, ta, tg, th0)
     _assert_close(h, want_h, dtype)
     torch.testing.assert_close(f, want_f, rtol=1e-4, atol=1e-4)
+
+
+def _rglru_on_card(B, S, W, dtype, cuda, seed=0, strided=True):
+    """A ``rglru_case`` on the card, as strided views or dense tensors."""
+    x, a, g, h0 = rglru_case(B, S, W, seed=seed)
+    if not strided:
+        return tuple(torch.from_numpy(t).to(cuda, d) for t, d in
+                     ((x, dtype), (a, torch.float32), (g, dtype),
+                      (h0, torch.float32)))
+    return (_wide(x, dtype, cuda), _wide(a, torch.float32, cuda),
+            _wide(g, dtype, cuda), _wide(h0, torch.float32, cuda))
+
+
+RGLRU_L = ops.RGLRU_CHUNK  # L, tokens a chunk of the kernel
+
+
+@pytest.mark.parametrize("S", [1, RGLRU_L - 1, RGLRU_L, RGLRU_L + 1,
+                               2 * RGLRU_L + 1, 300, 512, 1024])
+@pytest.mark.parametrize("B", [1, 2, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [True, False])
+def test_rglru_scan_chunks_match_plain(cuda, S, B, dtype, strided):
+    """The chunked kernel at the chunk boundaries (S 1, L - 1, L, L + 1,
+    2 L + 1) and long prompts (300: a ragged last chunk; 512; 1024), one to
+    16 rows, ragged W (520: a part tile), strided views or dense tensors
+    and a nonzero h0: one launch, against the per-step plain version,
+    h_final included."""
+    args = _rglru_on_card(B, S, 520, dtype, cuda, seed=S + B,
+                          strided=strided)
+    before = ops.LAUNCHES["rglru_scan"]
+    h, f = ops.rglru_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rglru_scan"] == before + 1
+    assert h.dtype == dtype and f.dtype == torch.float32
+    want_h, want_f = ref.rglru_scan(*args)
+    _assert_close(h, want_h, dtype)
+    torch.testing.assert_close(f, want_f, rtol=1e-4, atol=1e-4)
+
+
+def _rglru64(x, a_log, gate, h0):
+    """Per-step RG-LRU in float64: (h, h_final)."""
+    a = torch.exp(a_log.double())
+    u = torch.sqrt(torch.clamp_min(1 - a * a, 0)) * (gate.double()
+                                                     * x.double())
+    h, hs = h0.double(), []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + u[:, t]
+        hs.append(h)
+    return torch.stack(hs, 1), h
+
+
+@pytest.mark.parametrize("decay", ["strong", "weak"])
+@pytest.mark.parametrize("S", [300, 1024])
+def test_rglru_scan_chunks_at_extreme_decays(cuda, decay, S):
+    """Log decays near -8 (a chunk's prod a_t underflows to 0) or near 0
+    (h carried across every chunk, sqrt(1 - a^2) magnifying each rounding
+    of a): out and h_final finite and, against float64 (max abs error),
+    within 2x the plain f32 version's error (plus 1e-7 of the largest
+    |value|, so an exact plain version does not make the limit 0)."""
+    x, a, g, h0 = rglru_case(2, S, 520, seed=S)
+    a = (a * 1e-3 - 8.0) if decay == "strong" else a * 1e-4
+    args = [torch.from_numpy(t).to(cuda) for t in (x, a, g, h0)]
+    got = ops.rglru_scan(*args)
+    plain = ref.rglru_scan(*args)
+    want = _rglru64(*args)
+    for k, p, t in zip(got, plain, want):
+        assert torch.isfinite(k).all()
+        err = (k.double() - t).abs().max().item()
+        plain_err = (p.double() - t).abs().max().item()
+        assert err <= 2 * plain_err + 1e-7 * t.abs().max().item(), \
+            (err, plain_err)
+
+
+def test_scan_launches_in_a_row_reuse_the_buffers(cuda):
+    """Forty launches of both scans on one stream with no sync between
+    them (the RG-LRU kernel at S 1..700, one and many chunks, after a first
+    launch that sizes its flags): each launch a new epoch on the same
+    counter and flags, every result equal to the plain version's."""
+    rng = np.random.default_rng(4)
+    calls, first = [], None
+    for i in range(40):
+        S = 700 if i == 0 else int(rng.integers(1, 700))
+        if i % 4 == 3:
+            args = _rwkv6_on_card(rwkv6_case(4, S, 64, seed=i),
+                                  torch.bfloat16, cuda, True)
+            calls.append((ref.rwkv6_scan, args, ops.rwkv6_scan(*args)))
+            continue
+        args = _rglru_on_card(3, S, 300, torch.bfloat16, cuda, seed=i)
+        calls.append((ref.rglru_scan, args, ops.rglru_scan(*args)))
+        sync = ops._CHUNK_SYNC[("rglru_scan", args[0].device)]
+        if first is None:
+            first, epoch0, taken0 = sync, sync.epoch, sync.taken
+    multi = sum(1 for fn, a, _ in calls[1:] if fn is ref.rglru_scan
+                and a[0].shape[1] > RGLRU_L)
+    assert sync is first and sync.taken > taken0
+    assert epoch0 < sync.epoch <= epoch0 + multi
+    torch.cuda.synchronize()
+    for fn, args, got in calls:
+        plain = fn(*args)
+        _assert_close(got[0], plain[0], torch.bfloat16)
+        torch.testing.assert_close(got[1], plain[1], rtol=1e-4, atol=1e-4)
+
+
+def test_chunked_scans_refuse_graph_capture_on_card(cuda):
+    """A multi-chunk launch of either scan inside a CUDA graph capture
+    raises (a replay would reuse the host's epoch and tiles taken); the
+    same launches run eagerly afterwards."""
+    rg = _rglru_on_card(1, 64, 128, torch.bfloat16, cuda)
+    wk = _rwkv6_on_card(rwkv6_case(2, 64, 64), torch.bfloat16, cuda, True)
+    for scan, args in ((ops.rglru_scan, rg), (ops.rwkv6_scan, wk)):
+        scan(*args)
+        torch.cuda.synchronize()
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            with torch.cuda.graph(torch.cuda.CUDAGraph()):
+                scan(*args)
+    torch.cuda.synchronize()
+    for scan, plain, args in ((ops.rglru_scan, ref.rglru_scan, rg),
+                              (ops.rwkv6_scan, ref.rwkv6_scan, wk)):
+        _assert_close(scan(*args)[0], plain(*args)[0], torch.bfloat16)
 
 
 @pytest.mark.parametrize("BH,S,D", RWKV6_CASES + [(32, 300, 64),

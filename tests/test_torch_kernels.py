@@ -415,23 +415,138 @@ def test_rwkv6_scratch_holds_every_chunk_but_the_last(S, chunks):
             ops.RWKV6_CHUNK
 
 
-def test_rwkv6_sync_epochs_and_buffers():
-    """The WKV6 kernel's chunk-order bookkeeping: each launch a new epoch
-    on the same buffers while they hold enough flags; more flags than they
-    hold (or an epoch at the int32 limit) start fresh zeroed buffers."""
+def _check_chunk_sync(name):
+    """A chunked scan's chunk-order bookkeeping (ops._chunk_sync): each
+    launch a new epoch on the same buffers while they hold enough flags;
+    more flags than they hold (or an epoch at the int32 limit) start fresh
+    zeroed buffers."""
     dev = torch.device("cpu")
-    ops._WKV6_SYNC.pop(dev, None)
-    a = ops._wkv6_sync(dev, 64)
+    ops._CHUNK_SYNC.pop((name, dev), None)
+    a = ops._chunk_sync(name, dev, 64)
     assert (a.epoch, a.taken, a.flags.numel()) == (1, 0, 64)
+    assert a.args()[1::2] == (0, 1)  # (tiles, taken, flags, epoch)
     a.taken = 64
-    b = ops._wkv6_sync(dev, 32)
+    b = ops._chunk_sync(name, dev, 32)
     assert b is a and (b.epoch, b.taken) == (2, 64)
-    c = ops._wkv6_sync(dev, 65)
+    assert b.args()[1::2] == (64, 2)
+    c = ops._chunk_sync(name, dev, 65)
     assert c is not a and (c.epoch, c.taken, c.flags.numel()) == (1, 0, 65)
     assert not c.flags.any() and not c.tiles.any()
     c.epoch = 2 ** 31 - 1
-    assert ops._wkv6_sync(dev, 8).epoch == 1
-    ops._WKV6_SYNC.pop(dev)
+    assert ops._chunk_sync(name, dev, 8).epoch == 1
+    ops._CHUNK_SYNC.pop((name, dev))
+
+
+def test_rwkv6_sync_epochs_and_buffers():
+    """The WKV6 kernel's chunk-order bookkeeping (the helper both scans
+    share)."""
+    _check_chunk_sync("rwkv6_scan")
+
+
+def test_rglru_sync_epochs_and_buffers():
+    """The RG-LRU kernel's chunk-order bookkeeping (the helper both scans
+    share)."""
+    _check_chunk_sync("rglru_scan")
+
+
+def test_scans_keep_their_own_chunk_sync():
+    """Each kernel keeps its own counter and flags on a device: a launch of
+    one scan never advances the other's epoch or tiles taken."""
+    dev = torch.device("cpu")
+    for name in ("rwkv6_scan", "rglru_scan"):
+        ops._CHUNK_SYNC.pop((name, dev), None)
+    w = ops._chunk_sync("rwkv6_scan", dev, 16)
+    w.taken = 16
+    r = ops._chunk_sync("rglru_scan", dev, 16)
+    assert r is not w and (r.epoch, r.taken) == (1, 0)
+    assert ops._chunk_sync("rwkv6_scan", dev, 16).epoch == 2
+    assert (r.epoch, r.taken, w.taken) == (1, 0, 16)
+    for name in ("rwkv6_scan", "rglru_scan"):
+        ops._CHUNK_SYNC.pop((name, dev))
+
+
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 32, 33, 300, 512])
+def test_rglru_scratch_holds_every_chunk_but_the_last(S):
+    """The RG-LRU kernel's scratch: per (row, channel), a pair (prod a_t,
+    the chunk's h from 0) for every chunk of RGLRU_CHUNK tokens but the
+    last, none when S fits one chunk."""
+    B, W = 3, 520
+    chunks = -(-S // ops.RGLRU_CHUNK)
+    assert ops.rglru_scratch_floats(B, S, W) == B * W * (chunks - 1) * 2
+    assert (ops.rglru_scratch_floats(B, S, W) == 0) == \
+        (S <= ops.RGLRU_CHUNK)
+
+
+@pytest.mark.parametrize("const,kernel,name", [
+    ("RGLRU_CHUNK", "rglru_scan", "kL"),
+    ("RGLRU_TILE_W", "rglru_scan", "kTW"),
+    ("RWKV6_CHUNK", "rwkv6_scan", "kT")])
+def test_scan_wrappers_size_scratch_by_the_kernels_constants(const, kernel,
+                                                            name):
+    """The wrappers size each chunked scan's scratch and flags by a copy of
+    its kernel's chunk and tile constants: the copy equals the constant in
+    the kernel's source."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / f"{kernel}.cu").read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", src)
+    assert found == [str(getattr(ops, const))]
+
+
+@pytest.mark.parametrize("name", ["rwkv6_scan", "rglru_scan"])
+def test_chunked_scans_refuse_graph_capture(name, monkeypatch):
+    """The chunk-order epoch and tiles taken are launch arguments from the
+    host, which a replayed CUDA graph would reuse stale: a chunked scan
+    launched while its stream captures raises, and keeps no bookkeeping."""
+    dev = torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        ops._chunk_sync(name, dev, 8)
+    assert (name, dev) not in ops._CHUNK_SYNC
+
+
+# the RG-LRU kernel's chunk boundaries (a chunk is 16 tokens) and the
+# serve's largest prefill bucket, at ragged W
+RGLRU_BOUNDARIES = [(1, 15, 40), (2, 16, 40), (1, 17, 40), (2, 33, 24),
+                    (1, 128, 24), (2, 384, 24), (1, 256, 40)]
+
+
+@pytest.mark.parametrize("B,S,W", RGLRU_BOUNDARIES)
+def test_rglru_plain_matches_pallas_at_chunk_boundaries(B, S, W):
+    """The plain version the RG-LRU kernel is held to on the card, at the
+    kernel's chunk boundaries and long prompts, against the Pallas kernel
+    in interpret mode (its own 128-step chunks) and the oracle: 1e-5."""
+    x, a, g, h0 = rglru_case(B, S, W, seed=S)
+    jx = [jnp.asarray(t) for t in (x, a, g, h0)]
+    h, f = ops.rglru_scan(*_t(x, a, g, h0))
+    for want_h, want_f in (jops.rglru_scan(*jx), jref.rglru_scan_ref(*jx)):
+        _close(h, want_h, 1e-5)
+        _close(f, want_f, 1e-5)
+
+
+@pytest.mark.parametrize("decay,tol", [("strong", 1e-5), ("weak", 1e-3)])
+def test_rglru_plain_at_extreme_decays(decay, tol):
+    """Log decays near -8 (the kernel's chunk products underflow to 0) and
+    near 0 (h carried across all of S 300): the plain version the kernel
+    is held to stays finite and within ``tol`` (of the largest |value|) of
+    the same recurrence in float64.  Near 0, sqrt(1 - a^2) turns one f32
+    rounding of a a (1e-7) into ~1e-4 of beta, hence the wider limit."""
+    x, a, g, h0 = rglru_case(2, 300, 24, seed=3)
+    a = (a * 1e-3 - 8.0) if decay == "strong" else a * 1e-4
+    h, f = ops.rglru_scan(*_t(x, a, g, h0))
+    a64 = np.exp(a.astype(np.float64))
+    u = np.sqrt(np.maximum(1 - a64 * a64, 0)) * (g.astype(np.float64) * x)
+    want, hs = h0.astype(np.float64), []
+    for t in range(x.shape[1]):
+        want = a64[:, t] * want + u[:, t]
+        hs.append(want)
+    want_h = np.stack(hs, 1)
+    assert torch.isfinite(h).all() and torch.isfinite(f).all()
+    scale = np.abs(want_h).max()
+    assert np.abs(h.double().numpy() - want_h).max() <= tol * scale
+    assert np.abs(f.double().numpy() - want).max() <= tol * scale
+
 
 # -- contiguous flash attention and its gradient ------------------------------
 # The plain versions (what ops.flash_attention / ops.flash_attention_bwd run

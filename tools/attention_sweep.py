@@ -46,14 +46,26 @@ of 25 CUDA-event runs, the L2 flushed by a 64 MB ``zero_`` before each):
   the three products added straight into the sum, S through a fresh
   fragment every 16 deep, 32-row key tiles; then the times of knock-outs
   of its parts (timing only) and SDPA's forward;
-* ``moe``: the bf16 expert GEMM at qwen2-moe-a2.7b's decode (gate / up and
-  down) and prefill (C 42) shapes: the f32 sums of the kernel as built
-  (CUDA cores) and of the tensor-core variant (``tools/moe_gemm_mma.cu``,
-  built in place of ``moe_gemm.cu``) in three accumulation forms against float64 (as ``bwd_precision``), with the
-  share of bf16 outputs that differ from the plain version's; the times of
-  each, of the kernel with 32-deep bf16 slices and of the tensor-core
-  variant's other ring and slice depths, beside ``torch.bmm``; then the MoE
-  serve's tokens (as ``gaps``) for each form;
+* ``moe``: the bf16 expert GEMM at ``chip_smoke.py``'s cases
+  (qwen2-moe-a2.7b's decode gate / up and down, prefill C 42, one row, and
+  the decode pool as served, most rows zero): the f32 sums of the kernel
+  as built (CUDA cores, the weights through a ring in shared memory), of
+  the kernel it replaced (``tools/moe_gemm_fma.cu``) and of the
+  tensor-core variant (``tools/moe_gemm_mma.cu``) in three accumulation
+  forms, each built in place of ``moe_gemm.cu``, against float64 (as
+  ``bwd_precision``), with the share of bf16 outputs that differ from the
+  plain version's and from the replaced kernel's; the times of each, of
+  the ring's other stage counts and slice depths, with its skip of zero
+  rows off or widened, of the replaced kernel with 32-deep bf16 slices and
+  of the tensor-core variant's other rings, beside ``torch.bmm``; each
+  case's device time by kernel;
+* ``moe_gaps``: the MoE serve's tokens (as ``gaps``) through the kernel as
+  built and the tensor-core forms;
+* ``rglru``: the RG-LRU scan at ``chip_smoke.py``'s cases at each chunk
+  length, with knock-outs of its parts (timing only: the wait for the
+  earlier chunks' pairs, the re-run of the chunk), each case's device time
+  by kernel, and the precision against float64 of each chunk length and
+  of the plain version at the serve's decays and extreme ones;
 * ``rwkv6``: the WKV6 scan at ``chip_smoke.py``'s cases (rwkv6-1.6b's
   512- and 128-token prefills of one row, a decode step at B 16) as built,
   built for three blocks an SM, and with knock-outs of its parts (timing only): the fold of the earlier
@@ -204,6 +216,8 @@ FWD_PARTS = [
 RWKV_VARIANTS = [("3 blocks an SM", [
     ("rwkv6_scan.cu", "__launch_bounds__(8 * D) wkv6_kernel",
      "__launch_bounds__(8 * D, 3) wkv6_kernel")])]
+# the chunk-order wait both scans share (csrc/chunk_order.cuh)
+NO_WAIT = ("chunk_order.cuh", "while (*f != epoch) {", "while (false) {")
 RWKV_PARTS = [
     ("no fold of the earlier chunks' states", [
         ("rwkv6_scan.cu", "for (int j2 = 0; j2 < c; ++j2) {",
@@ -211,40 +225,97 @@ RWKV_PARTS = [
     ("no pairwise weights", [
         ("rwkv6_scan.cu", "    if (t < n) {\n      // row t's r",
          "    if (false) {\n      // row t's r")]),
-    ("no wait for the earlier chunks' pairs", [
-        ("rwkv6_scan.cu", "while (*f != a.epoch) {", "while (false) {")])]
-# edits of the bf16 expert GEMM: TC builds the tensor-core variant in
-# place of moe_gemm.cu, in three accumulation forms and with other ring and
-# slice depths; with out_f32 a build writes its f32 sums instead of rounding
-# them to bf16 (for the precision lines)
+    ("no wait for the earlier chunks' pairs", [NO_WAIT])]
+# edits of the bf16 expert GEMM: FMA and TC build the replaced kernel
+# (tools/moe_gemm_fma.cu) and the tensor-core variant in place of
+# moe_gemm.cu, the latter in three accumulation forms and with other ring
+# and slice depths; the shipped kernel with other ring and slice depths,
+# its skip of zero rows off or widened, and other kernels or layouts at the
+# cuts of its C table; with out_f32 a build writes its f32 sums instead of
+# rounding them to bf16 (for the precision lines)
 STAGES = "constexpr int kStages = 4;"
 DEPTH = "constexpr int kDepth = 32;"
 FRESH = "constexpr int kFreshDepth = 16;"
+SPARSE = "constexpr int kSparseRows = 2;"
+SKIP = "    if (__popc(live) <= kLive) {"
 TC = ("moe_gemm.cu", None, os.path.join(ROOT, "tools", "moe_gemm_mma.cu"))
+FMA = ("moe_gemm.cu", None, os.path.join(ROOT, "tools", "moe_gemm_fma.cu"))
 
 
 def out_f32(edits):
-    """The edit that makes a build of ``edits`` write its f32 sums."""
+    """The edits that make a build of ``edits`` write its f32 sums."""
+    fma = ("moe_gemm.cu", "      if (col < a.f) ob[row * a.o_sc + col] "
+           "= rt::from_f<T>(acc[r][c]);",
+           "      if (col < a.f) reinterpret_cast<float*>(a.out)[e * "
+           "a.o_se + row * a.o_sc + col] = acc[r][c];")
     if TC in edits:
-        return ("moe_gemm.cu", "          ob[row * a.o_sc + col] = "
+        return [("moe_gemm.cu", "          ob[row * a.o_sc + col] = "
                 "__float2bfloat16(acc[m][n][i]);",
                 "          reinterpret_cast<float*>(a.out)[e * a.o_se + "
-                "row * a.o_sc + col] = acc[m][n][i];")
-    return ("moe_gemm.cu", "      if (col < a.f) ob[row * a.o_sc + col] = "
-            "rt::from_f<T>(acc[r][c]);",
-            "      if (col < a.f) reinterpret_cast<float*>(a.out)[e * a.o_se"
-            " + row * a.o_sc + col] = acc[r][c];")
-
+                "row * a.o_sc + col] = acc[m][n][i];")]
+    if FMA in edits:
+        return [fma]
+    # the shipped kernel: its ring and its 16-row tile (C 9-15)
+    return [fma, ("moe_gemm.cu", "      if (cc < a.f) ob[row * a.o_sc + cc]"
+                  " = rt::from_f<T>(acc[r][j]);",
+                  "      if (cc < a.f) reinterpret_cast<float*>(a.out)[e * "
+                  "a.o_se + row * a.o_sc + cc] = acc[r][j];")]
 
 
 MOE_FORMS = [  # precision, time and the MoE serve's tokens
+    ("replaced FMA kernel", [FMA]),
     ("tensor cores, each 16 deep rounded into the sum", [TC]),
     ("tensor cores, each 32 deep rounded into the sum", [
         TC, ("moe_gemm.cu", FRESH, "constexpr int kFreshDepth = 32;")]),
     ("tensor cores, straight into the sum", [
         TC, ("moe_gemm.cu", FRESH, "constexpr int kFreshDepth = 0;")])]
-MOE_VARIANTS = [  # the first kernel's slice depth, the tensor-core ring
-    ("first kernel, 32-deep bf16 slices", [  # bf16 only: f32's X slice
+# a line of the shipped kernel's C-tile table (launch_c), and the same C
+# at another layout: R rows a warp, G groups, CW columns a lane
+C15 = "  if (a.C < 16) return launch_tile<T>(a, E, st);"
+C16 = "  if (a.C == 16) return launch<T, 8, 2, 2>(a, E, st);"
+C24 = "  if (a.C <= 24) return launch<T, 8, 3, 4>(a, E, st);"
+C48 = "  if (a.C <= 48) return launch<T, 8, 6, 2>(a, E, st);"
+
+
+def layout(line, r, g, cw):
+    """The edit that sends ``line``'s C to layout (r, g, cw)."""
+    return ("moe_gemm.cu", line,
+            line.split("return")[0] + f"return launch<T, {r}, {g}, {cw}>"
+            "(a, E, st);")
+
+
+MOE_VARIANTS = [  # the ring's stages and depth, the zero-row skip, the
+    # C-tile layouts; the replaced kernel's slice depth; the tensor-core ring
+    ("ring, 2 stages", [("moe_gemm.cu", STAGES, "constexpr int kStages = 2;")]),
+    ("ring, 3 stages", [("moe_gemm.cu", STAGES, "constexpr int kStages = 3;")]),
+    ("ring, 6 stages", [("moe_gemm.cu", STAGES, "constexpr int kStages = 6;")]),
+    ("ring, 8 stages", [("moe_gemm.cu", STAGES, "constexpr int kStages = 8;")]),
+    ("ring, 16-deep slices, 8 stages", [
+        ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 16;"),
+        ("moe_gemm.cu", STAGES, "constexpr int kStages = 8;")]),
+    ("ring, 64-deep slices", [
+        ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;")]),
+    ("ring, 64-deep slices, 2 stages", [
+        ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;"),
+        ("moe_gemm.cu", STAGES, "constexpr int kStages = 2;")]),
+    ("ring, zero-row skip off", [("moe_gemm.cu", SKIP, "    if (false) {")]),
+    ("ring, zero-row skip up to 4 rows at every R", [
+        ("moe_gemm.cu", SKIP, "    if (__popc(live) <= 4) {")]),
+    ("ring, zero-row skip up to 8 rows", [
+        ("moe_gemm.cu", SKIP, "    if (__popc(live) <= 8) {")]),
+    ("ring, zero-row skip below half the warp's rows", [
+        ("moe_gemm.cu", SKIP, "    if (2 * __popc(live) < R) {")]),
+    ("C 9-15 through the ring (2 groups of 8 rows)", [
+        layout(C15, 8, 2, 2)]),
+    ("C 17-24 at two columns a lane", [layout(C24, 8, 3, 2)]),
+    ("ring, C 16 as one group of 16 rows", [layout(C16, 16, 1, 2)]),
+    ("ring, C 16 at four columns a lane", [layout(C16, 8, 2, 4)]),
+    ("ring, C 16 as four groups of 4 rows, four columns a lane", [
+        layout(C16, 4, 4, 4)]),
+    ("ring, C 42 at four columns a lane", [layout(C48, 8, 6, 4)]),
+    ("ring, C 42 as three groups of 16 rows", [layout(C48, 16, 3, 2)]),
+    ("replaced kernel, 32-deep bf16 slices", [  # bf16 only: f32's X slice
+        FMA,
         ("moe_gemm.cu", "constexpr int kBD = 16;", "constexpr int kBD = 32;"),
         ("moe_gemm.cu", "  if (dtype == 0) launch_bc<float>(a, E, st);\n"
          "  else launch_bc",
@@ -252,20 +323,21 @@ MOE_VARIANTS = [  # the first kernel's slice depth, the tensor-core ring
          "  launch_bc")]),
     ("tensor cores, 2 stages", [
         TC, ("moe_gemm.cu", STAGES, "constexpr int kStages = 2;")]),
-    ("tensor cores, 3 stages", [
-        TC, ("moe_gemm.cu", STAGES, "constexpr int kStages = 3;")]),
     ("tensor cores, 6 stages", [
         TC, ("moe_gemm.cu", STAGES, "constexpr int kStages = 6;")]),
-    ("tensor cores, 16-deep slices, 8 stages", [
-        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 16;"),
-        ("moe_gemm.cu", STAGES, "constexpr int kStages = 8;")]),
     ("tensor cores, 64-deep slices", [
-        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;")]),
-    ("tensor cores, 64-deep slices, 2 stages", [
-        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;"),
-        ("moe_gemm.cu", STAGES, "constexpr int kStages = 2;")])]
+        TC, ("moe_gemm.cu", DEPTH, "constexpr int kDepth = 64;")])]
 MOE = ("decode C=16 d=2048 f=1408", "decode down C=16 d=1408 f=2048",
-       "prefill C=42 d=2048 f=1408")
+       "prefill C=42 d=2048 f=1408", "single row C=1 d=2048 f=1408",
+       cs.MOE_SERVED) + tuple(n for n, *_ in cs.MOE_ROUTED)
+# knock-outs of the RG-LRU kernel's parts (wrong results: timing only)
+RGLRU_PARTS = [
+    ("no wait for the earlier chunks' pairs", [NO_WAIT]),
+    ("no re-run of the chunk (outputs from the carry)", [
+        ("rglru_scan.cu", "      h = av[i] * h + uv[i];\n      if (ok) ob",
+         "      if (ok) ob")])]
+RGLRU_CHUNKS = (8, 16, 32)  # chunk lengths timed, kL patched
+RGLRU_L = "constexpr int kL = 16;"
 
 
 def log(*a):
@@ -745,14 +817,7 @@ def _moe_f32(lib, x, w):
     """The bf16 expert GEMM of ``lib`` (an out_f32 build) on x, w: its f32
     sums (E, C, f)."""
     from repro_torch.kernels import ops
-    E, C, d = x.shape
-    f = w.shape[2]
-    out = torch.empty((E, C, f), dtype=torch.float32, device=x.device)
-    rc = lib.moe_gemm_launch(
-        1, E, C, d, f, x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(),
-        w.stride(0), w.stride(1), out.data_ptr(), out.stride(0),
-        out.stride(1), ops._aligned16(x), ops._aligned16(w),
-        torch.cuda.current_stream().cuda_stream)
+    out, rc = ops.moe_gemm_with(lib, x, w, torch.float32)
     if rc != 0:
         raise RuntimeError(f"moe_gemm_launch: cudaError {rc}")
     return out
@@ -762,47 +827,139 @@ def moe_sweep(gen):
     from repro_torch.kernels import ops, ref
     cases = [(n, a) for n, a, _, _ in by_name(cs.moe_cases(gen), MOE)]
     forms = [("as built", [])] + MOE_FORMS
-    # precision: f32 sums against float64, and bf16 outputs that differ
-    # from the plain version's
+    f32_libs = variant_libs([(f"{tag} f32 out", edits + out_f32(edits))
+                             for tag, edits in forms], "moe_gemm")
+    libs = [("as built", {})] + [
+        (tag, {"moe_gemm": lib}) for tag, lib in variant_libs(
+            MOE_FORMS + MOE_VARIANTS, "moe_gemm").items()]
+    # precision: f32 sums against float64, bf16 outputs that differ from
+    # the plain version's and from the replaced kernel's
     for n, (x, w) in cases:
         want = torch.einsum("ecd,edf->ecf", x.double(), w.double())
         plain = ref.moe_gemm(x, w)
+        fma = with_libs(libs[1][1], lambda: ops.moe_gemm(x, w))
         f32 = torch.einsum("ecd,edf->ecf", x.float(), w.float())
         res = [f"plain f32 {_rel(f32, want)}"]
-        for tag, edits in forms:
-            f32 = _moe_f32(variant_lib(f"{tag} f32 out",
-                                       edits + [out_f32(edits)],
-                                       "moe_gemm"), x, w)
-            lib = variant_lib(tag, edits, "moe_gemm") if edits else None
-            out = with_libs({"moe_gemm": lib} if lib else {},
-                            lambda: ops.moe_gemm(x, w))
-            diff = (out != plain).float().mean().item()
-            res.append(f"{tag} {_rel(f32, want)}, bf16 != plain {diff:.2e}")
+        for (tag, lib), (_, f32_lib) in zip(libs, f32_libs.items()):
+            f32 = _moe_f32(f32_lib, x, w)
+            out = with_libs(lib, lambda: ops.moe_gemm(x, w))
+            res.append(f"{tag} {_rel(f32, want)}, bf16 != plain "
+                       f"{(out != plain).float().mean().item():.2e}, != "
+                       f"replaced {(out != fma).float().mean().item():.2e}")
         log(f"[moe_precision] {n}: " + "; ".join(res))
     log("[moe] torch.bmm: " + "; ".join(
         f"{n} {cs.time_ms(lambda: torch.bmm(*a)):.4f}" for n, a in cases)
         + " ms")
-    libs = [("as built", {})] + [
-        (tag, {"moe_gemm": variant_lib(tag, edits, "moe_gemm")})
-        for tag, edits in MOE_FORMS + MOE_VARIANTS]
     for tag, lib in libs:
         res = with_libs(lib, lambda: [
             f"{n} {cs.time_ms(lambda: ops.moe_gemm(*a)):.4f}"
             for n, a in cases])
         log(f"[moe] {tag}: " + "; ".join(res) + " ms")
-    gaps(libs[:len(MOE_FORMS) + 1])
+    for n, a in cases:
+        _, rows = cs._device_times(lambda: ops.moe_gemm(*a))
+        log(f"[moe] {n} as built, by kernel: " + "; ".join(
+            f"{k[:50]} {ms:.4f} ms" for k, ms in rows if "moe" in k))
+
+
+def moe_gaps():
+    """The MoE serve's tokens (as ``gaps``) through the kernel as built and
+    the tensor-core forms (the replaced kernel's are the same bits)."""
+    gaps([("as built", {})] + [
+        (tag, {"moe_gemm": lib}) for tag, lib in variant_libs(
+            MOE_FORMS[1:], "moe_gemm").items()])
+
+
+def _rglru64(x, a_log, gate, h0):
+    """Per-step RG-LRU in float64: (h, h_final)."""
+    a = torch.exp(a_log.double())
+    u = torch.sqrt(torch.clamp_min(1 - a * a, 0)) * (gate.double()
+                                                     * x.double())
+    h, hs = h0.double(), []
+    for t in range(x.shape[1]):
+        h = a[:, t] * h + u[:, t]
+        hs.append(h)
+    return torch.stack(hs, 1), h
+
+
+def with_chunk(L, lib, run):
+    """``run()`` with the RG-LRU kernel built for chunks of ``L`` tokens
+    (``lib``; None: as built), the wrapper sizing its scratch and flags by
+    ``L``."""
+    from repro_torch.kernels import ops
+    real = ops.RGLRU_CHUNK
+    ops.RGLRU_CHUNK = L
+    try:
+        return with_libs({"rglru_scan": lib} if lib else {}, run)
+    finally:
+        ops.RGLRU_CHUNK = real
+
+
+def rglru_sweep(gen):
+    """The RG-LRU scan at chip_smoke.py's cases (recurrentgemma-9b's 512-
+    and 128-token prefills of one row, a decode step at B 16, 300 tokens):
+    the times at each chunk length (builds with kL patched), and with
+    knock-outs of the kernel's parts at the shipped length (timing only);
+    each case's device time by kernel; then the max abs error against
+    float64 (relative to the largest |value|) of h and h_final, f32 inputs
+    at B 1, S 512, W 4096, with the serve's decays (a_log = -6.4 sigmoid),
+    log decays near -8 and near 0: the kernel at each chunk length and the
+    per-step plain version."""
+    from repro_torch.kernels import ops, ref
+    cases = [(n, a) for n, a, _, _ in cs.rglru_cases(gen)]
+    libs = variant_libs([(f"rglru chunk {L}", [(
+        "rglru_scan.cu", RGLRU_L, f"constexpr int kL = {L};")])
+        for L in RGLRU_CHUNKS if L != ops.RGLRU_CHUNK], "rglru_scan")
+    chunks = {L: libs.get(f"rglru chunk {L}") for L in RGLRU_CHUNKS}
+    for L, lib in chunks.items():
+        log(f"[rglru] chunk {L}" + (" (shipped)" if lib is None else "")
+            + ": " + "; ".join(with_chunk(L, lib, lambda: [
+                f"{n} {cs.time_ms(lambda: ops.rglru_scan(*a)):.4f}"
+                for n, a in cases])) + " ms")
+    for tag, lib in variant_libs(RGLRU_PARTS, "rglru_scan").items():
+        res = with_libs({"rglru_scan": lib}, lambda: [
+            f"{n} {cs.time_ms(lambda: ops.rglru_scan(*a)):.4f}"
+            for n, a in cases])
+        log(f"[rglru] {tag} (timing only): " + "; ".join(res) + " ms")
+    for n, a in cases:
+        _, rows = cs._device_times(lambda: ops.rglru_scan(*a))
+        log(f"[rglru] {n} as built, by kernel: " + "; ".join(
+            f"{k[:40]} {ms:.4f} ms" for k, ms in rows if "rglru" in k))
+    B, S, W = 1, 512, 4096
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    for decay in ("served", "strong", "weak"):
+        x, gate, h0 = randn(B, S, W), torch.sigmoid(randn(B, S, W)), \
+            randn(B, W)
+        a_log = -6.4 * torch.sigmoid(randn(B, S, W))
+        if decay == "strong":
+            a_log = a_log * 1e-3 - 8.0
+        elif decay == "weak":
+            a_log = a_log * 1e-4
+        want = _rglru64(x, a_log, gate, h0)
+        args = (x, a_log, gate, h0)
+        forms = {f"kernel chunk {L}": lambda L=L, lib=lib: with_chunk(
+            L, lib, lambda: ops.rglru_scan(*args))
+            for L, lib in chunks.items()}
+        forms["per-step plain"] = lambda: ref.rglru_scan(*args)
+        res = []
+        for tag, fn in forms.items():
+            errs = [((g.double() - t).abs().max() / t.abs().max()).item()
+                    for g, t in zip(fn(), want)]
+            res.append(f"{tag} h {errs[0]:.2e} h_final {errs[1]:.2e}")
+        log(f"[rglru_precision] {decay} decay: " + "; ".join(res))
 
 
 SECTIONS = ("decode", "pool", "flush", "variants", "precision", "gaps",
-            "bwd_precision", "fwd_precision", "moe", "rwkv6", "rwkv6_gate")
+            "bwd_precision", "fwd_precision", "moe", "moe_gaps", "rglru",
+            "rwkv6", "rwkv6_gate")
 
 
 def main(argv=None):
     want = (argv if argv is not None else sys.argv[1:]) or SECTIONS
     smi = cs.device_phase()
     from repro_torch.kernels import build
-    build.build(["decode_attention", "flash_attention_pool", "moe_gemm",
-                 "flash_attention", "flash_attention_bwd", "rwkv6_scan"])
+    build.build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(cs.SEED)
     if "decode" in want:
@@ -825,6 +982,10 @@ def main(argv=None):
         fwd_precision(gen)
     if "moe" in want:
         moe_sweep(gen)
+    if "moe_gaps" in want:
+        moe_gaps()
+    if "rglru" in want:
+        rglru_sweep(gen)
     if "rwkv6" in want:
         rwkv6_sweep(gen)
         rwkv6_precision(gen)
