@@ -24,6 +24,14 @@ prefill chunk and decode segment (the serving attention kernels', the
 expert GEMM's and the scans' share of device time), holds the expert
 GEMM's outputs bitwise equal to the kernel it replaced
 (``tools/moe_gemm_fma.cu``, built beside it), and
+serves ``llama3.2-3b`` through the serving modules on the same weights --
+``[prefix]``: 8 flows sharing a 512-token system prompt, hot (the prefix
+cache on, its hits held to a simulation's prediction, its forward tokens
+to a cold twin's minus the hit tokens) and cold; ``[faults]``: 4 flows
+with a transient device fault at every fifth decode check; ``[frontend]``:
+4 flows from two threads through ``ServingFrontend``, one cancelled after
+its 4th token -- each checked against the plain path, and runs
+``python -m repro_torch.launch.serve --real`` (``[launcher]``), then
 prints the kernel table as JSON and, as its last line, ``{"ok": true,
 "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
@@ -1187,12 +1195,15 @@ def make_flows(cfg, n_proactive, n_out, rng):
 
 def _record_prefill_chunks(eng):
     """Per-flow lengths of the prompt chunks the backend prefills, in
-    order (a chunk from position 0 restarts the flow's list, as a replay
-    after a discarding preemption does).  Each chunk runs as its
-    ``_pow2_buckets`` sub-chunks, one ``extend`` each."""
+    order.  Each chunk runs as its ``_pow2_buckets`` sub-chunks, one
+    ``extend`` each.  A shared prefix the backend copied in (a prefix-cache
+    hit) is recorded first, as a 1-tuple ``(hit,)``.  The list restarts
+    where the row restarts: at a chunk from position 0, or at a prefix
+    copy (a replay after a discarding preemption re-copies the prefix and
+    prefills again from the hit)."""
     chunks = {}
     backend = eng.backend
-    run = backend._run_bucketed_in_pool
+    run, copy = backend._run_bucketed_in_pool, backend._copy_prefix
 
     def recording(req, start, n):
         if start == 0:
@@ -1201,7 +1212,14 @@ def _record_prefill_chunks(eng):
             chunks[req.id].append(n)
         return run(req, start, n)
 
+    def copying(req, hit):
+        done = copy(req, hit)
+        if done > 0:
+            chunks[req.id] = [(done,)]
+        return done
+
     backend._run_bucketed_in_pool = recording
+    backend._copy_prefix = copying
     return chunks
 
 
@@ -1226,16 +1244,18 @@ def _tally_scans(ops, calls):
 
 
 def serve(cfg, params, flows, *, device, dtype, kv_dtype="bf16",
-          inject_after=40, scan_calls=None):
-    """Serve ``flows`` through the port's engine.  Returns (engine, metrics,
-    wall seconds, per-flow wall TTFT seconds, launches during the run,
-    per-flow prefill chunk lengths); with a ``scan_calls`` dict, also fills
-    it with each scan's prefill and decode calls during the run."""
+          inject_after=40, scan_calls=None, **engine_kw):
+    """Serve ``flows`` through the port's engine (its defaults, the prefix
+    cache on among them, unless ``engine_kw`` says otherwise).  Returns
+    (engine, metrics, wall seconds, per-flow wall TTFT seconds, launches
+    during the run, per-flow prefill chunk lengths); with a ``scan_calls``
+    dict, also fills it with each scan's prefill and decode calls during
+    the run."""
     from repro_torch.core.engine import RealAgentXPUEngine
     from repro_torch.kernels import ops
     eng = RealAgentXPUEngine(cfg, params, max_len=MAX_LEN, dtype=dtype,
                              device=device, pool_slots=POOL,
-                             kv_dtype=kv_dtype)
+                             kv_dtype=kv_dtype, **engine_kw)
     chunks = _record_prefill_chunks(eng)
     t_sub, t_first, late, streamed = {}, {}, [], [0]
 
@@ -1328,6 +1348,10 @@ def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True):
                              f"{decode_tokens} decode tokens")
     if need_abort and st["aborted_runs"] < 1:
         raise AssertionError(f"[{label}] no fused run was aborted")
+    log(f"[prefix] {label}: {st['prefix_hits']} hit prefills, "
+        f"{st['prefix_hit_tokens']} prompt tokens copied, "
+        f"{st['prefix_fallbacks']} fallbacks, {st['kv_bytes_prefix_copied']} "
+        f"KV bytes copied, {st['prefill_forward_tokens']} forward tokens")
     return st, decode_tokens
 
 
@@ -1335,15 +1359,17 @@ def _teacher_forced(cfg, params, f, served, chunks, *, dtype, kv_dtype,
                     backend):
     """Yield the logits that score each served token of flow ``f``: its
     prompt through ``extend`` in ``chunks`` (each as its pow-2
-    sub-chunks, as the engine runs them; None: one call), then its served
-    tokens one at a time."""
+    sub-chunks, as the engine runs them, and a copied prefix ``(hit,)`` as
+    one call over its tokens; None: one call), then its served tokens one
+    at a time."""
     from repro_torch.core.backend import _pow2_buckets
     from repro_torch.models import extend, init_cache
     cache = init_cache(cfg, params, 1, MAX_LEN, dtype, kv_dtype=kv_dtype)
     device = cache["pos"].device
     toks = torch.from_numpy(np.asarray(f["tokens"], np.int64)).to(device)
     sizes = [toks.shape[1]] if chunks is None else \
-        [b for n in chunks for b in _pow2_buckets(n)]
+        [b for n in chunks for b in
+         (n if isinstance(n, tuple) else _pow2_buckets(n))]
     if sum(sizes) != toks.shape[1]:
         raise AssertionError(f"flow {f['id']}: prefill chunks {chunks} do "
                              f"not cover its {toks.shape[1]} prompt tokens")
@@ -1653,9 +1679,297 @@ def bf16_gate(cfg, params, eng, flows, chunks, worst):
                 planted_fault_gaps=faults)
 
 
+# -- the serving modules: prefix cache, fault seam, front end, launcher --------
+# [prefix]: a shared system prompt of PREFIX_SYSTEM tokens before each flow's
+# 64-512-token tail
+PREFIX_SYSTEM = 512
+
+
+def prefix_flows(cfg, rng):
+    """8 flows (6 proactive, 2 reactive) shaped like make_flows, each
+    prompt a shared PREFIX_SYSTEM-token system prompt (drawn once) and a
+    64-512-token tail, none submitted mid-run.  Flow 0 arrives at 0; the
+    others after its prefill ends on the scheduler's clock (a
+    simulation-only run of flow 0 finds the instant), so every later flow
+    can hit the prefix flow 0 donates.  Returns the flows and the
+    prediction of a simulation-only run of them with the prefix cache on:
+    the port's ``AgentXPUEngine`` with ``SimBackend(prefix_cache=True,
+    max_len=MAX_LEN)``, which makes the real engine's decisions."""
+    from repro_torch.core import AgentXPUEngine
+    from repro_torch.core.backend import SimBackend
+    system = rng.integers(0, cfg.vocab_size, (1, PREFIX_SYSTEM))
+    lens = rng.integers(64, 513, size=8)
+    flows = [dict(id=i, arrival=0.0, reactive=i >= 6, late=False,
+                  out=OUT_TOKENS, tokens=np.concatenate(
+                      [system, rng.integers(0, cfg.vocab_size,
+                                            (1, int(lens[i])))], axis=1))
+             for i in range(8)]
+    first = AgentXPUEngine(cfg).run_trace(_requests(flows[:1])).completed[0]
+    for f in flows[1:]:
+        f["arrival"] = first.ttft + 0.02 * f["id"]
+    sim = AgentXPUEngine(cfg)
+    sim.backend = SimBackend(prefix_cache=True, max_len=MAX_LEN)
+    sim.run_trace(_requests(flows))
+    st = sim.backend.stats()
+    return flows, {k: st[k] for k in ("prefix_hits", "prefix_hit_tokens")}
+
+
+def _free_at_exit(eng, label):
+    st = eng.stats()
+    problems = eng.backend.validate()
+    if problems or st["free_slots"] != st["pool_slots"]:
+        raise AssertionError(f"[{label}] {st['free_slots']}/"
+                             f"{st['pool_slots']} slots free at exit, "
+                             f"validate(): {problems}")
+
+
+def prefix_phase(cfg, params):
+    """[prefix]: the shared-prefix trace served cold (``prefix_cache=False``)
+    and then hot (the default, prefix cache on; second, so that any
+    first-run cost of its shapes falls on the cold serve, though the serves
+    before this phase ran such shapes already).  The hot serve's hits
+    must equal the simulation's prediction (every flow after the first),
+    with no fallback, its forward tokens the cold serve's minus the hit
+    tokens, every token within LOGIT_MARGIN of the plain path, and every
+    slot free at exit.  Prints each flow's wall TTFT hot and cold and the
+    token agreement of the two serves (not gated: bf16 rounds a copied
+    prefix's tail differently from a cold chunking)."""
+    label = f"{cfg.name} prefix"
+    flows, want = prefix_flows(cfg, np.random.default_rng(SEED + 2))
+    if want["prefix_hits"] != len(flows) - 1:
+        raise AssertionError(f"[{label}] the simulation predicts "
+                             f"{want['prefix_hits']} hits, not one for "
+                             f"every flow after the first")
+    log(f"[prefix] {label}: {len(flows)} flows, a {PREFIX_SYSTEM}-token "
+        f"system prompt + tails of "
+        f"{[f['tokens'].shape[1] - PREFIX_SYSTEM for f in flows]} tokens, "
+        f"simulation predicts {want}")
+    runs = {}
+    for hot in (False, True):
+        runs[hot] = serve(cfg, params, flows, device="cuda",
+                          dtype=torch.bfloat16, prefix_cache=hot)
+        eng, metrics, wall, ttft, launches, chunks = runs[hot]
+        check_serve(cfg, eng, metrics, flows, launches,
+                    label + ("" if hot else " cold"), need_abort=False)
+        _free_at_exit(eng, label)
+    (eng, m, wall, ttft, launches, chunks), cold = runs[True], runs[False]
+    st, st_cold = eng.stats(), cold[0].stats()
+    got = {k: st[k] for k in want}
+    if got != want or st["prefix_fallbacks"]:
+        raise AssertionError(f"[{label}] hits {got} (simulation {want}), "
+                             f"{st['prefix_fallbacks']} fallbacks")
+    if st["prefill_forward_tokens"] != st_cold["prefill_forward_tokens"] \
+            - st["prefix_hit_tokens"]:
+        raise AssertionError(
+            f"[{label}] {st['prefill_forward_tokens']} forward tokens, not "
+            f"the cold serve's {st_cold['prefill_forward_tokens']} minus "
+            f"{st['prefix_hit_tokens']} hit tokens")
+    t0 = time.perf_counter()
+    exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                      dtype=torch.bfloat16)
+    agree = sum(a == b for f in flows for a, b in zip(
+        eng.output_tokens(f["id"]), cold[0].output_tokens(f["id"])))
+    hit_ids = [f["id"] for f in flows[1:]]
+    ttft_hot = [ttft[i] for i in hit_ids]
+    ttft_cold = [cold[3][i] for i in hit_ids]
+    log(f"[prefix] {label}: hot {wall:.3f} s wall, cold {cold[2]:.3f} s; "
+        f"hits {got['prefix_hits']} ({got['prefix_hit_tokens']} tokens, "
+        f"{st['kv_bytes_prefix_copied']} KV bytes in "
+        f"{st['prefix_copy_device_calls']} copies), forward tokens "
+        f"{st['prefill_forward_tokens']} hot / "
+        f"{st_cold['prefill_forward_tokens']} cold; wall TTFT from run "
+        f"start by flow (s), hot "
+        + json.dumps({i: round(ttft[i], 4) for i in sorted(ttft)})
+        + " cold "
+        + json.dumps({i: round(cold[3][i], 4) for i in sorted(cold[3])})
+        + f"; hit flows' mean {np.mean(ttft_hot):.4f} hot / "
+        f"{np.mean(ttft_cold):.4f} cold; tokens equal to the cold serve's "
+        f"{agree}/{total}")
+    log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
+        f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
+        f"(margin {LOGIT_MARGIN}), {time.perf_counter() - t0:.1f} s; "
+        f"prefill replayed as {chunks}")
+    out = dict(flows=len(flows), wall_s=wall, cold_wall_s=cold[2],
+               launches=launches, cold_launches=cold[4],
+               hit_ttft_wall_s=ttft_hot, cold_ttft_wall_s=ttft_cold,
+               hit_ttft_mean_s=float(np.mean(ttft_hot)),
+               cold_ttft_mean_s=float(np.mean(ttft_cold)),
+               tokens_equal_to_cold=agree, plain_exact=exact,
+               plain_total=total, plain_worst_gap=worst,
+               **{k: st[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                     "prefix_fallbacks",
+                                     "kv_bytes_prefix_copied",
+                                     "prefix_copy_device_calls",
+                                     "prefill_forward_tokens")},
+               cold_prefill_forward_tokens=st_cold["prefill_forward_tokens"])
+    del eng, cold, runs
+    _release()
+    return out
+
+
+def faults_phase(cfg, params):
+    """[faults]: 4 flows with a transient device fault at every fifth
+    decode check (the reference's ``faulty`` mode of the reactive
+    benchmark): every flow completes, its tokens within LOGIT_MARGIN of the
+    plain path, with retries counted, no flow quarantined and every slot
+    free at exit."""
+    from repro_torch.core.faults import Fault, FaultInjector
+    label = f"{cfg.name} faults"
+    flows = make_flows(cfg, 2, OUT_TOKENS, np.random.default_rng(SEED + 3))
+    faults = FaultInjector([Fault(site="device", stage="decode", nth=1,
+                                  period=5)])
+    eng, metrics, wall, _, launches, chunks = serve(
+        cfg, params, flows, device="cuda", dtype=torch.bfloat16,
+        inject_after=12, faults=faults)
+    st, _ = check_serve(cfg, eng, metrics, flows, launches, label,
+                        need_abort=False)
+    _free_at_exit(eng, label)
+    if not st["device_fault_retries"] or st["quarantined_flows"]:
+        raise AssertionError(f"[{label}] {st['device_fault_retries']} "
+                             f"retries, {st['quarantined_flows']} flows "
+                             f"quarantined")
+    exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                      dtype=torch.bfloat16)
+    log(f"[faults] {label}: {len(metrics.completed)}/{len(flows)} flows "
+        f"completed in {wall:.3f} s wall, {st['device_fault_retries']} "
+        f"transient device retries ({st['faults_fired']} of "
+        f"{st['fault_checks']} checks fired), {st['quarantined_flows']} "
+        f"quarantined; vs plain path {exact}/{total} exact, largest gap "
+        f"{worst:.4f}")
+    out = dict(flows=len(flows), wall_s=wall, launches=launches,
+               plain_exact=exact, plain_total=total, plain_worst_gap=worst,
+               **{k: st[k] for k in ("device_fault_retries", "faults_fired",
+                                     "fault_checks", "quarantined_flows")})
+    del eng
+    _release()
+    return out
+
+
+def frontend_phase(cfg, params):
+    """[frontend]: ``ServingFrontend`` over a full-width engine, 4 flows
+    submitted from two threads (one reactive); flow 1 is cancelled by its
+    consumer after its 4th token.  Every handle must reach its terminal
+    status (``cancelled`` for flow 1, ``completed`` with OUT_TOKENS tokens
+    for the rest), the completed flows' tokens within LOGIT_MARGIN of the
+    plain path, and after ``drain()`` every slot free."""
+    import threading
+    from repro_torch.core import Priority
+    from repro_torch.core.engine import RealAgentXPUEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch.frontend import ServingFrontend
+    label = f"{cfg.name} frontend"
+    rng = np.random.default_rng(SEED + 4)
+    lens = rng.integers(64, 513, size=4)
+    flows = [dict(id=i, out=OUT_TOKENS * (3 if i == 1 else 1),
+                  reactive=i == 3, tokens=rng.integers(
+                      0, cfg.vocab_size, (1, int(lens[i]))))
+             for i in range(4)]
+    eng = RealAgentXPUEngine(cfg, params, max_len=MAX_LEN,
+                             dtype=torch.bfloat16, device="cuda",
+                             pool_slots=POOL)
+    chunks = _record_prefill_chunks(eng)
+    handles, results = {}, {}
+    fe = ServingFrontend(eng)
+
+    def client(mine):
+        for f in mine:
+            handles[f["id"]] = fe.submit(
+                f["tokens"], flow_id=f["id"], max_new_tokens=f["out"],
+                priority=Priority.REACTIVE if f["reactive"]
+                else Priority.PROACTIVE)
+        for f in mine:
+            h = handles[f["id"]]
+            if f["id"] == 1:
+                for _ in range(4):
+                    h.next_token(timeout=600)
+                h.cancel()
+            results[f["id"]] = h.result(timeout=600)
+
+    _sync("cuda")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fe.start()
+    threads = [threading.Thread(target=client, args=(flows[i::2],))
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    fe.drain(timeout=600)
+    fe.close(timeout=600)
+    _sync("cuda")
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    status = {i: r["status"] for i, r in sorted(results.items())}
+    want = {0: "completed", 1: "cancelled", 2: "completed", 3: "completed"}
+    if status != want or any(results[i]["n_tokens"] != OUT_TOKENS
+                             for i in (0, 2, 3)):
+        raise AssertionError(f"[{label}] statuses {status}, tokens "
+                             f"{ {i: r['n_tokens'] for i, r in results.items()} }")
+    if not all(launches[k] for k in PATH_KERNELS[cfg.name]):
+        raise AssertionError(f"[{label}] a kernel of "
+                             f"{PATH_KERNELS[cfg.name]} never launched: "
+                             f"{launches}")
+    _free_at_exit(eng, label)
+    done = [f for f in flows if f["id"] != 1]
+    exact, total, worst = plain_check(cfg, params, eng, done, chunks,
+                                      dtype=torch.bfloat16)
+    ttft = {i: r["token_walls"][0] - r["submit_wall"]
+            for i, r in sorted(results.items())}
+    st = fe.stats()
+    log(f"[frontend] {label}: statuses {status}, tokens "
+        f"{ {i: r['n_tokens'] for i, r in sorted(results.items())} } in "
+        f"{wall:.3f} s wall, {st['runs']} engine runs, cancelled flows "
+        f"{st['cancelled_flows']}; wall TTFT from submit by flow (s) "
+        + json.dumps({i: round(t, 4) for i, t in ttft.items()})
+        + f"; vs plain path {exact}/{total} exact, largest gap {worst:.4f}; "
+        f"launches {launches}")
+    out = dict(flows=len(flows), wall_s=wall, launches=launches,
+               statuses=status, ttft_wall_s=ttft, plain_exact=exact,
+               plain_total=total, plain_worst_gap=worst)
+    del eng, fe
+    _release()
+    return out
+
+
+def launcher_phase():
+    """[launcher]: ``python -m repro_torch.launch.serve --real --horizon 30
+    --json`` on the card (the tiny config, as the reference's ``--real``):
+    it must exit 0 with every request of the trace completed and prefix
+    hits in its summary."""
+    from repro_torch.core import WorkloadConfig, generate_workload
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--real",
+         "--horizon", "30", "--json"], capture_output=True, text=True,
+        env=env, cwd=root, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"[launcher] exit {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    summ = json.loads(out.stdout)
+    n = len(generate_workload(WorkloadConfig(proactive_rate=0.5,
+                                             horizon=30.0)))
+    bad = {k: summ[k] for k in ("n_failed", "n_timed_out", "n_rejected",
+                                "n_cancelled") if summ[k]}
+    if summ["n_completed"] != n or bad or not summ["prefix_hit_tokens"] > 0:
+        raise AssertionError(f"[launcher] {summ['n_completed']}/{n} "
+                             f"completed, {bad}, prefix_hit_tokens "
+                             f"{summ['prefix_hit_tokens']}")
+    log(f"[launcher] repro_torch.launch.serve --real --horizon 30: exit 0 "
+        f"in {wall:.1f} s wall (process included), {summ['n_completed']}/{n}"
+        f" requests completed, prefix_hit_tokens "
+        f"{summ['prefix_hit_tokens']} (hit rate "
+        f"{summ['prefix_hit_rate']:.4f})")
+    return dict(wall_s=wall, requests=n, **summ)
+
+
 def serve_phase():
-    """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool, then
-    the serving profile (profile_serving)."""
+    """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool, the
+    serving modules' phases on the same weights ([prefix], [faults],
+    [frontend]), then the serving profile (profile_serving)."""
     cfg, params = _init(ARCH)
     serve_stats = bf16_serve(cfg, params)
     flows8 = make_flows(cfg, 2, 16, np.random.default_rng(SEED + 1))
@@ -1676,6 +1990,9 @@ def serve_phase():
                                plain_total=total8, plain_worst_gap=worst8)
     del eng8
     _release()
+    serve_stats["prefix"] = prefix_phase(cfg, params)
+    serve_stats["faults"] = faults_phase(cfg, params)
+    serve_stats["frontend"] = frontend_phase(cfg, params)
     serve_stats["profile"] = profile_serving(cfg, params)
     return serve_stats
 
@@ -1744,6 +2061,8 @@ def main():
     phase_done(f"{ARCH} train")
     serve_stats = serve_phase()
     phase_done(ARCH)
+    launcher = launcher_phase()
+    phase_done("launcher")
     other = {}
     for arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):
         _release()  # the previous path's weights and pools
@@ -1753,6 +2072,10 @@ def main():
     by_path = {f"{ARCH} train": train_stats["launches"],
                f"{ARCH} bf16": serve_stats["launches"],
                f"{ARCH} int8": serve_stats["int8"]["launches"],
+               f"{ARCH} prefix": serve_stats["prefix"]["launches"],
+               f"{ARCH} prefix cold": serve_stats["prefix"]["cold_launches"],
+               f"{ARCH} faults": serve_stats["faults"]["launches"],
+               f"{ARCH} frontend": serve_stats["frontend"]["launches"],
                **{f"{a} bf16": st["launches"] for a, st in other.items()},
                **{f"{a} f32": st["f32"]["launches"]
                   for a, st in other.items() if "f32" in st}}
@@ -1794,6 +2117,7 @@ def main():
                 **kernel_rows[(b, headline[k])])
     log(json.dumps({"train": train_stats}))
     log(json.dumps({"serve": serve_stats}))
+    log(json.dumps({"launcher": launcher}))
     for arch, st in other.items():
         log(json.dumps({f"serve {arch}": st}))
     log(json.dumps({"kernel_cases": [

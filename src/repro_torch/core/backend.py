@@ -25,8 +25,11 @@ from repro_torch.core.contention import (MemoryPressureEstimator,
                                          co_execution_rates)
 from repro_torch.core.faults import (AllocationFault, FaultError,
                                      FaultInjector, FlowFault,
-                                     InvariantViolation)
-from repro_torch.core.prefixcache import PrefixCache
+                                     InvariantViolation,
+                                     PermanentDeviceFault,
+                                     TransientDeviceFault)
+from repro_torch.core.prefixcache import (PrefixCache,
+                                          prefix_reuse_supported)
 from repro_torch.core.requests import Request
 
 TokenCallback = Callable[[Request, int], None]
@@ -272,16 +275,22 @@ class TorchRealBackend(ExecutionBackend):
     * every decode dispatch is elastic (DESIGN.md §9): the leading pow-2
       live rows of the pool, over the pow-2 live KV prefix.
 
+    * a matched shared prefix (DESIGN.md §10) is served by one bounded
+      row-to-row KV copy (``kvcache.copy_prefix_rows``), or from the
+      refcounted snapshot store once its donor row was rebound
+      (``snapshot_prefix`` / ``paste_prefix``); configs that fail
+      ``prefix_reuse_supported`` silently serve cold, as in the reference;
+    * every device program goes through :meth:`_call`, the fault seam
+      (DESIGN.md §12): it counts the program's shape key and consults the
+      ``FaultInjector`` BEFORE the launch, so a fault never leaves a
+      half-written row behind.
+
     PyTorch runs eagerly, so nothing is compiled; ``jit_compilations``
     counts the first-seen shape keys the reference would have compiled, and
     ``decode_device_calls``/``host_syncs`` count as in the reference.
 
-    Not ported yet, each refused by name: the prefix cache
-    (``prefix_cache=True``), fault injection (``faults=``), and the
-    ``device_resident=False`` / ``in_pool_prefill=False`` baselines.
-    Per-flow isolation of ``on_token`` hook failures, deadlines, the
-    bounded pool (``pool_slots_max``) and surgical quarantine of a cancelled
-    or failed flow are kept: the scheduler drives them.
+    Not ported yet, each refused by name: the ``device_resident=False`` /
+    ``in_pool_prefill=False`` baselines.
     """
 
     name = "torch"
@@ -292,12 +301,15 @@ class TorchRealBackend(ExecutionBackend):
                  abortable_runs: bool = True,
                  decode_segment_steps: int = 8,
                  elastic_decode: bool = True,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True,
+                 prefix_cache_tokens: Optional[int] = None,
+                 prefix_block: int = 1,
                  kv_dtype: str = "bf16",
                  kernel_backend: str = "cuda",
                  pool_slots_max: Optional[int] = None,
                  isolate_flow_faults: bool = True,
-                 faults: Optional[FaultInjector] = None):
+                 faults: Optional[FaultInjector] = None,
+                 device_fault_retries_max: int = 3):
         import numpy as np
         import torch
         from repro_torch.models import cache_bytes, check_supported, \
@@ -309,14 +321,6 @@ class TorchRealBackend(ExecutionBackend):
         if kernel_backend not in KERNEL_BACKENDS:
             raise ValueError(f"kernel_backend must be one of "
                              f"{KERNEL_BACKENDS}: {kernel_backend!r}")
-        if prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP.md queue 1, "
-                "item 5d: prefix-cache hooks); pass prefix_cache=False")
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection is not ported yet (ROADMAP.md queue 1, "
-                "item 5e: fault injection and quarantine)")
         if not device_resident or in_pool_prefill is False:
             raise NotImplementedError(
                 "the device_resident=False / in_pool_prefill=False baselines "
@@ -346,9 +350,11 @@ class TorchRealBackend(ExecutionBackend):
         self.pool_slots_max = None if pool_slots_max is None \
             else max(int(pool_slots_max), 1)
         self.isolate_flow_faults = bool(isolate_flow_faults)
+        self._faults = faults
+        self._fault_retry_max = max(int(device_fault_retries_max), 0)
         self._pending_faults: List[FlowFault] = []
         self._quarantined: set = set()  # rids faulted, awaiting quarantine
-        self.device_fault_retries = 0  # no fault injection yet
+        self.device_fault_retries = 0  # transient launch failures retried
         self.flow_faults = 0
         self.quarantined_flows = 0
         self.pressure_evicted_nodes = 0
@@ -411,7 +417,31 @@ class TorchRealBackend(ExecutionBackend):
         self.decode_rows = 0
         self.decode_kv_limit = 0
         self.kv_bytes_decode = 0
-        self.prefill_forward_tokens = 0
+        # shared-prefix KV reuse (DESIGN.md §10): a host-side radix index
+        # over prompt token IDs; a hit replaces the matched prefix's forward
+        # passes with ONE bounded row-to-row KV copy
+        from repro_torch.core.prefixcache import DEFAULT_CAPACITY_TOKENS
+        self._prefix: Optional[PrefixCache] = None
+        if prefix_cache and prefix_reuse_supported(cfg, max_len):
+            self._prefix = PrefixCache(
+                prefix_cache_tokens or DEFAULT_CAPACITY_TOKENS,
+                block=prefix_block)
+        self._hit: Dict[int, int] = {}  # req id -> matched prefix length
+        self._hit_node: Dict[int, object] = {}  # req id -> pinned radix node
+        # physical prefix sources: nodes backed by a live/free pool row
+        # (slot -> node set), and the refcounted off-pool snapshot store for
+        # prefixes whose donor slot was rebound (entry id -> entry)
+        self._slot_nodes: Dict[int, set] = {}
+        self._store: Dict[int, dict] = {}
+        self._store_next = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_prompt_tokens = 0
+        self.prefix_copy_device_calls = 0  # row/store -> row prefix copies
+        self.prefix_promotions = 0  # donor-slot rebinds snapshotted to store
+        self.prefix_fallbacks = 0  # hits served by forward passes (no source)
+        self.kv_bytes_prefix_copied = 0  # KV bytes moved by prefix copies
+        self.prefill_forward_tokens = 0  # tokens that ran a real forward
         # memory-contention observability (paper §6.4, DESIGN.md §14)
         self.prefill_bw_util = 0.35
         self.decode_bw_util = 0.85
@@ -436,7 +466,30 @@ class TorchRealBackend(ExecutionBackend):
             self._shape_keys.add(key)
             self.jit_compilations += 1
 
-    # -- device programs --------------------------------------------------------
+    def _call(self, key: tuple, fn, *args, rid: Optional[int] = None,
+              stage: str = "device", **kw):
+        """Launch one device program through the fault seam (DESIGN.md
+        §12): count its shape ``key``, then consult the injector BEFORE the
+        launch.  The port writes the pool in place, so a check after a
+        partial write would leave a half-advanced row; checked first, a
+        retry is a clean re-launch.  Transient faults are retried up to
+        ``device_fault_retries_max`` times, then escalate to
+        ``PermanentDeviceFault``; flow-attributable sites pass ``rid``."""
+        self._shape_key(key)
+        if self._faults is not None:
+            for _ in range(self._fault_retry_max + 1):
+                try:
+                    self._faults.check("device", req_id=rid, stage=stage)
+                    break
+                except TransientDeviceFault:
+                    self.device_fault_retries += 1
+            else:
+                raise PermanentDeviceFault(
+                    f"transient device fault at {stage} persisted past "
+                    f"{self._fault_retry_max} segment replays")
+        return fn(*args, **kw)
+
+    # -- device programs (launched through _call) -----------------------------
     def _prefill_chunk(self, sizes: tuple, buf, start: int, slot: int, *,
                        kv_limit: int, fresh: bool, emit: bool):
         """In-pool prefill of (up to two) pow-2 sub-chunks on a view of row
@@ -447,8 +500,6 @@ class TorchRealBackend(ExecutionBackend):
         token as a device scalar (no host sync)."""
         from repro_torch.models import (extend, read_row, reset_row,
                                         truncate_rings, write_row_slice)
-        self._shape_key(("prefill_chunk", self.pool_slots, sizes,
-                         buf.shape[1], kv_limit, fresh, emit))
         pool = self._pool
         if fresh:
             reset_row(pool, slot)
@@ -473,8 +524,6 @@ class TorchRealBackend(ExecutionBackend):
         from repro_torch.models import (decode_run, decode_step, slice_rows,
                                         write_rows_prefix)
         p = self.pool_slots
-        self._shape_key(("decode_run", p, n_steps, rows, kvl) if fused
-                        else ("decode", p, rows, kvl))
         sub = slice_rows(self._pool, rows) if rows < p else self._pool
         toks, mask = self._toks[:rows], self._mask[:rows]
         kw = dict(kv_limit=kvl, full_alloc=self.max_len,
@@ -490,6 +539,19 @@ class TorchRealBackend(ExecutionBackend):
             write_rows_prefix(self._pool, sub, rows, kvl, self.max_len)
         toks.copy_(t)
         return out
+
+    def _decode_call(self, n_steps: int, rows: int, kvl: int, fused: bool):
+        key = ("decode_run", self.pool_slots, n_steps, rows, kvl) if fused \
+            else ("decode", self.pool_slots, rows, kvl)
+        return self._call(key, self._decode, n_steps, rows, kvl, fused,
+                          stage="decode")
+
+    def _clear_slot(self, slot: int) -> None:
+        """Clear a freed slot's last token and mask bit, so a stale token
+        can never leak into a future bind's first masked step (fills on the
+        device: no host-to-device copy)."""
+        self._toks.narrow(0, slot, 1).zero_()
+        self._mask.narrow(0, slot, 1).zero_()
 
     # -- slot management -----------------------------------------------------
     def _grow_pool(self):
@@ -518,12 +580,70 @@ class TorchRealBackend(ExecutionBackend):
 
     def _alloc_slot(self, rid: int) -> int:
         """Bind the LOWEST free slot (min-heap), growing the pool if none is
-        free; raises ``AllocationFault`` at ``pool_slots_max``."""
+        free.  If the popped row still backs radix prefixes, they are
+        promoted to the store FIRST: the row is about to be reused
+        (DESIGN.md §10).  Raises ``AllocationFault`` (injected, or real at
+        ``pool_slots_max``)."""
+        if self._faults is not None:
+            self._faults.check("alloc", req_id=rid)
         if not self._free:
             self._grow_pool()
         slot = heapq.heappop(self._free)
+        self._promote_donor(slot)
         self._slot[rid] = slot
         return slot
+
+    # -- shared-prefix sources (DESIGN.md §10) --------------------------------
+    def _set_source(self, node, src) -> None:
+        """Re-point a radix node's physical KV source, keeping the reverse
+        maps (slot -> nodes, store refcounts) consistent.  A store entry
+        whose last referencing node departs is freed."""
+        old = node.source
+        if old == src:
+            return
+        if old is not None:
+            kind, ref = old
+            if kind == "slot":
+                nodes = self._slot_nodes.get(ref)
+                if nodes is not None:
+                    nodes.discard(node)
+                    if not nodes:
+                        del self._slot_nodes[ref]
+            else:
+                entry = self._store.get(ref)
+                if entry is not None:
+                    entry["refs"] -= 1
+                    if entry["refs"] <= 0:
+                        del self._store[ref]
+        node.source = src
+        if src is not None:
+            kind, ref = src
+            if kind == "slot":
+                self._slot_nodes.setdefault(ref, set()).add(node)
+            else:
+                self._store[ref]["refs"] += 1
+
+    def _promote_donor(self, slot: int) -> None:
+        """A free slot that still backs indexed prefixes is being rebound:
+        snapshot the deepest donated prefix into a refcounted store entry
+        (one bounded copy) and re-point every backed node at it.  Promotion
+        never drops an indexed prefix, so the index stays a pure function of
+        the insert/evict sequence (sim and real traces stay equal)."""
+        from repro_torch.models import snapshot_prefix
+        nodes = self._slot_nodes.get(slot)
+        if not nodes:
+            return
+        depth_cap = _next_pow2(max(n.depth for n in nodes))
+        entry_cache = self._call(
+            ("prefix_snap", self.pool_slots, depth_cap), snapshot_prefix,
+            self._pool, slot, depth_cap, self.max_len, stage="prefix_copy")
+        eid = self._store_next
+        self._store_next += 1
+        self._store[eid] = {"cache": entry_cache, "cap": depth_cap,
+                            "refs": 0}
+        self.prefix_promotions += 1
+        for n in list(nodes):
+            self._set_source(n, ("store", eid))
 
     def _sync_mask(self, slots: List[int]):
         """Push the iteration's membership to the device mask when it
@@ -534,8 +654,9 @@ class TorchRealBackend(ExecutionBackend):
         diff = np.nonzero(want != self._mask_host)[0]
         if len(diff) == 0:
             return
-        self._shape_key(("mask", self.pool_slots, _next_pow2(len(diff))))
-        self._mask.copy_(self._torch.from_numpy(want))
+        self._call(("mask", self.pool_slots, _next_pow2(len(diff))),
+                   self._mask.copy_, self._torch.from_numpy(want),
+                   stage="mask")
         self._mask_host = want
 
     # -- in-pool prefill (DESIGN.md §7) ---------------------------------------
@@ -553,12 +674,76 @@ class TorchRealBackend(ExecutionBackend):
                 self.device)
         return buf
 
+    def prefix_hit(self, req: Request) -> int:
+        """Scheduler hook (arrival time): longest indexed prefix of the
+        prompt, matched on exact token IDs and pinned until the request
+        retires; served by ONE KV copy at the first prefill chunk
+        (``_copy_prefix``).  Capped at ``prompt_len - 1``: at least one
+        forward must run to produce the first output token."""
+        if self._prefix is None or req.tokens is None:
+            return 0
+        self.prefix_prompt_tokens += req.prompt_len
+        hit, node = self._prefix.match(_prompt_key(req),
+                                       max_hit=req.prompt_len - 1)
+        if hit <= 0 or node is None:
+            return 0
+        old = self._hit_node.pop(req.id, None)
+        if old is not None:  # re-arrival of the same id: drop the stale pin
+            self._prefix.unpin(old)
+        self._prefix.pin(node)
+        self._hit[req.id] = hit
+        self._hit_node[req.id] = node
+        self.prefix_hits += 1
+        self.prefix_hit_tokens += hit
+        return hit
+
+    def _copy_prefix(self, req: Request, hit: int) -> int:
+        """Serve a matched prefix into the request's freshly bound row as
+        one bounded KV copy, resolving the pinned node's physical source AT
+        COPY TIME (the donor may have been promoted slot -> store since the
+        match).  Returns the row position reached; 0 means no resolvable
+        source (the caller then runs forward passes: a hit can slow down but
+        never change tokens)."""
+        from repro_torch.models import copy_prefix_rows, paste_prefix
+        node = self._hit_node.get(req.id)
+        src = getattr(node, "source", None)
+        if src is None:
+            self.prefix_fallbacks += 1
+            return 0
+        dst = self._slot[req.id]
+        hit_cap = _next_pow2(hit)
+        kind, ref = src
+        if kind == "slot":
+            if ref == dst:  # can't happen (promotion precedes rebinding)
+                self.prefix_fallbacks += 1
+                return 0
+            self._call(("prefix_copy", self.pool_slots, hit_cap),
+                       copy_prefix_rows, self._pool, ref, dst, hit, hit_cap,
+                       self.max_len, rid=req.id, stage="prefix_copy")
+        else:
+            entry = self._store.get(ref)
+            if entry is None:
+                self.prefix_fallbacks += 1
+                return 0
+            cap = min(hit_cap, entry["cap"])
+            self._call(("prefix_paste", self.pool_slots, entry["cap"], cap),
+                       paste_prefix, self._pool, entry["cache"], dst, hit,
+                       cap, entry["cap"], self.max_len, rid=req.id,
+                       stage="prefix_copy")
+        self.prefix_copy_device_calls += 1
+        self.kv_bytes_prefix_copied += hit_cap * self._kv_token_bytes
+        self._row_pos[req.id] = hit
+        return hit
+
     def _ensure_row_at(self, req: Request, seq_start: int):
         """Pool row positioned at ``seq_start``: the slot is allocated at
         prefill START and its reused row invalidated by the next chunk's
-        ``fresh`` program; a discard-style preemption that reset the
-        scheduler's chunk progress re-invalidates the row and replays the
-        already-prefilled prefix."""
+        ``fresh`` program; a matched prefix is copied in (never forwarded)
+        before any tail runs, and sets the row position to the hit so the
+        first tail bucket does not reset the row; a discard-style
+        preemption that reset the scheduler's chunk progress re-invalidates
+        the row and replays the already-prefilled prefix, re-copying the
+        prefix too (the pinned node keeps its source alive)."""
         rid = req.id
         if rid in self._slot and self._row_pos.get(rid) == seq_start:
             return
@@ -566,8 +751,12 @@ class TorchRealBackend(ExecutionBackend):
             self._alloc_slot(rid)
         self._row_pos[rid] = None  # sentinel: next bucket resets the row
         self._nxt_dev.pop(rid, None)
-        if seq_start > 0:
-            self._run_bucketed_in_pool(req, 0, seq_start)
+        done = 0
+        hit = min(self._hit.get(rid, 0), seq_start)
+        if hit > 0:
+            done = self._copy_prefix(req, hit)
+        if seq_start > done:
+            self._run_bucketed_in_pool(req, done, seq_start - done)
 
     def _run_bucketed_in_pool(self, req: Request, start: int, n: int):
         if n <= 0:  # zero-length chunk: nothing ran, nothing to dispatch
@@ -581,9 +770,12 @@ class TorchRealBackend(ExecutionBackend):
         pos = start
         for sizes in groups:
             gstart, pos = pos, pos + sum(sizes)
-            nxt = self._prefill_chunk(sizes, buf, gstart, self._slot[rid],
-                                      kv_limit=_next_pow2(pos), fresh=fresh,
-                                      emit=pos >= req.prompt_len)
+            kvl, emit = _next_pow2(pos), pos >= req.prompt_len
+            nxt = self._call(
+                ("prefill_chunk", self.pool_slots, sizes, buf.shape[1], kvl,
+                 fresh, emit), self._prefill_chunk, sizes, buf, gstart,
+                self._slot[rid], kv_limit=kvl, fresh=fresh, emit=emit,
+                rid=rid, stage="prefill")
             self.prefill_device_calls += 1
             fresh = False
         self._row_pos[rid] = pos
@@ -615,6 +807,12 @@ class TorchRealBackend(ExecutionBackend):
     def take_flow_faults(self) -> List[FlowFault]:
         out, self._pending_faults = self._pending_faults, []
         return out
+
+    def deadline_expired(self, req: Request, now: float) -> bool:
+        if self._faults is not None and \
+                self._faults.fires("deadline", req_id=req.id):
+            return True
+        return super().deadline_expired(req, now)
 
     def _track_prefill(self, rid: int) -> None:
         if rid not in self._prefill_live:
@@ -660,6 +858,17 @@ class TorchRealBackend(ExecutionBackend):
         # host-known row progress: decode dispatches derive their pow-2
         # kv_limit from the max live position of the batch (§9)
         self._slot_pos[self._slot[rid]] = req.prompt_len
+        # index the finished prompt as a donor (DESIGN.md §10), but only
+        # when the row can NEVER ring-wrap (wrap would overwrite the donated
+        # prefix); the gate is static per request, so the sim models it too
+        if self._prefix is not None \
+                and req.prompt_len + req.max_new_tokens <= self.max_len:
+            path, evicted = self._prefix.insert(_prompt_key(req))
+            slot = self._slot[rid]
+            for n in path:
+                self._set_source(n, ("slot", slot))
+            for n in evicted:
+                self._set_source(n, None)
         self._last[rid] = first
         self._texts[rid] = [first]
         self._emit(req, first)
@@ -722,7 +931,7 @@ class TorchRealBackend(ExecutionBackend):
         blocks = []
         for b in _pow2_buckets(n):
             rows, kvl = self._elastic_extent(slots, b)
-            block = self._decode(b, rows, kvl, fused=True)
+            block = self._decode_call(b, rows, kvl, fused=True)
             self.decode_device_calls += 1
             self._account_decode(slots, b, rows, kvl)
             blocks.append(block)
@@ -766,7 +975,7 @@ class TorchRealBackend(ExecutionBackend):
         slots = [self._slot[r.id] for r in live]
         self._sync_mask(slots)
         rows, kvl = self._elastic_extent(slots, 1)
-        nxt = self._decode(1, rows, kvl, fused=False)
+        nxt = self._decode_call(1, rows, kvl, fused=False)
         self.decode_device_calls += 1
         self._account_decode(slots, 1, rows, kvl)
         nxt = nxt.cpu().numpy()  # the one host sync of this iteration
@@ -801,11 +1010,15 @@ class TorchRealBackend(ExecutionBackend):
         outlives the run."""
         slot = self._slot.pop(rid, None)
         if slot is not None:
-            # clear the slot's last token and mask bit so a stale token can
-            # never leak into a future bind's first masked step
-            self._shape_key(("clear", self.pool_slots))
-            self._toks[slot] = 0
-            self._mask[slot] = False
+            try:
+                self._call(("clear", self.pool_slots), self._clear_slot, slot,
+                           rid=rid, stage="finish")
+            except FaultError:
+                # an injected fault at the finish boundary fires BEFORE the
+                # launch, so forcing the clear through is a clean re-launch:
+                # slot reclamation must never leak on a cleanup fault
+                self.flow_faults += 1
+                self._clear_slot(slot)
             self._mask_host[slot] = False
             self._slot_pos.pop(slot, None)
             heapq.heappush(self._free, slot)
@@ -815,6 +1028,13 @@ class TorchRealBackend(ExecutionBackend):
         self._tok_dev.pop(rid, None)
         self._row_pos.pop(rid, None)
         self._nxt_dev.pop(rid, None)
+        # release the consumer's prefix pin; the request's OWN donated
+        # prefix (if indexed at prefill_done) outlives it: the freed row
+        # keeps its KV until rebinding promotes the prefix to the store
+        self._hit.pop(rid, None)
+        node = self._hit_node.pop(rid, None)
+        if node is not None and self._prefix is not None:
+            self._prefix.unpin(node)
 
     def finish(self, req: Request, now: float) -> None:
         slot = self._slot.get(req.id)
@@ -872,6 +1092,8 @@ class TorchRealBackend(ExecutionBackend):
             return
         cb = self._on_token.get(req.id)
         try:
+            if self._faults is not None:
+                self._faults.check("hook", req_id=req.id)
             if cb is not None:
                 cb(req, token)
         except Exception as e:
@@ -879,6 +1101,23 @@ class TorchRealBackend(ExecutionBackend):
 
     def output_tokens(self, req_id: int) -> list:
         return self._texts.get(req_id, [])
+
+    # -- bounded-resource accounting (DESIGN.md §12) --------------------------
+    def kv_store_rows(self) -> int:
+        return len(self._store)
+
+    def evict_prefix_leaves(self) -> int:
+        """Degradation-ladder rung 1: force-evict every unpinned node and
+        drop its physical source; store entries whose last node departs
+        are freed (real KV rows back)."""
+        if self._prefix is None:
+            return 0
+        before = len(self._store)
+        nodes = self._prefix.evict_unpinned()
+        for n in nodes:
+            self._set_source(n, None)
+        self.pressure_evicted_nodes += len(nodes)
+        return before - len(self._store)
 
     def validate(self, strict: bool = False) -> List[str]:
         """Slot-accounting invariants (DESIGN.md §12): the free heap and the
@@ -911,13 +1150,57 @@ class TorchRealBackend(ExecutionBackend):
             if ghost:
                 problems.append(f"fused plan over unbound slots: "
                                 f"{sorted(ghost)}")
+        if self._prefix is not None:
+            problems += self._validate_prefix()
         if strict and problems:
             raise InvariantViolation("; ".join(problems))
         return problems
 
+    def _validate_prefix(self) -> List[str]:
+        """Prefix accounting: node sources, store refcounts, pins."""
+        problems: List[str] = []
+        refs: Dict[int, int] = {}
+        stack = [self._prefix.root]
+        while stack:
+            nd = stack.pop()
+            stack.extend(nd.children.values())
+            src = nd.source
+            if src is None:
+                continue
+            kind, ref = src
+            if kind == "slot":
+                if nd not in self._slot_nodes.get(ref, set()):
+                    problems.append(f"node {nd.nid} claims slot {ref} but "
+                                    f"is not in _slot_nodes")
+            else:
+                if ref not in self._store:
+                    problems.append(f"node {nd.nid} references dropped "
+                                    f"store entry {ref}")
+                refs[ref] = refs.get(ref, 0) + 1
+        for eid, entry in self._store.items():
+            if entry["refs"] != refs.get(eid, 0):
+                problems.append(f"store entry {eid} refcount {entry['refs']}"
+                                f" != {refs.get(eid, 0)} referencing nodes")
+            if entry["refs"] <= 0:
+                problems.append(f"store entry {eid} kept at refs<=0")
+        # consumer pins: every pinned node's refs equals its pin count
+        pins: Dict[int, int] = {}
+        by_id: Dict[int, object] = {}
+        for node in self._hit_node.values():
+            pins[id(node)] = pins.get(id(node), 0) + 1
+            by_id[id(node)] = node
+        for key, n_pins in pins.items():
+            node = by_id[key]
+            if node.refs != n_pins:
+                problems.append(f"node {node.nid} refs {node.refs} != "
+                                f"{n_pins} in-flight consumer pins")
+        if set(self._hit) != set(self._hit_node):
+            problems.append(f"hit/hit_node key mismatch: {sorted(self._hit)}"
+                            f" vs {sorted(self._hit_node)}")
+        return problems
+
     def stats(self) -> dict:
-        """The reference's keys; the prefix-cache ones stay 0 (no prefix
-        cache yet)."""
+        """The reference's keys, with the same values on the same trace."""
         return {"jit_compilations": self.jit_compilations,
                 "decode_device_calls": self.decode_device_calls,
                 "prefill_device_calls": self.prefill_device_calls,
@@ -940,19 +1223,24 @@ class TorchRealBackend(ExecutionBackend):
                 "flow_faults": self.flow_faults,
                 "quarantined_flows": self.quarantined_flows,
                 "pressure_evicted_nodes": self.pressure_evicted_nodes,
+                **(self._faults.stats() if self._faults is not None
+                   else {}),
                 "kv_dtype": self.kv_dtype,
                 "kernel_backend": self.kernel_backend,
                 "quant_scale_bytes": self.quant_scale_bytes,
-                "prefix_hits": 0,
-                "prefix_hit_tokens": 0,
-                "prefix_hit_rate": 0.0,
-                "kv_bytes_prefix_copied": 0,
-                "prefix_copy_device_calls": 0,
-                "prefix_promotions": 0,
-                "prefix_fallbacks": 0,
-                "prefix_store_entries": 0,
+                "prefix_hits": self.prefix_hits,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prefix_hit_rate": self.prefix_hit_tokens
+                / max(self.prefix_prompt_tokens, 1),
+                "kv_bytes_prefix_copied": self.kv_bytes_prefix_copied,
+                "prefix_copy_device_calls": self.prefix_copy_device_calls,
+                "prefix_promotions": self.prefix_promotions,
+                "prefix_fallbacks": self.prefix_fallbacks,
+                "prefix_store_entries": len(self._store),
                 "prefill_forward_tokens": self.prefill_forward_tokens,
-                **self._contention_stats()}
+                **self._contention_stats(),
+                **(self._prefix.stats() if self._prefix is not None
+                   else {})}
 
     def _contention_stats(self) -> dict:
         """Memory-contention observability (paper §6.4, DESIGN.md §14)."""

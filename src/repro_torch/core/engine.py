@@ -117,12 +117,13 @@ class RealAgentXPUEngine(AgentXPUEngine):
     ``kernel_backend`` is ``"cuda"`` (the hand-written attention kernels;
     their plain versions for CPU tensors) or ``"plain"``.
 
-    ``prefix_cache`` defaults to False because the port has no prefix
-    cache yet (True raises, naming the ROADMAP item); the
-    reference's default is True, so traces are compared with it off.
-    ``faults=`` (fault injection), the legacy ``device_resident=False`` /
-    ``in_pool_prefill=False`` baselines and ``dual_device=True`` raise
-    likewise."""
+    ``prefix_cache`` (shared-prefix KV reuse, DESIGN.md §10) defaults to
+    True, as in the reference; ``faults=`` threads a ``FaultInjector``
+    through the backend's fault seam (DESIGN.md §12).  Not ported yet, each
+    raising ``NotImplementedError`` naming its ROADMAP item: the legacy
+    ``device_resident=False`` / ``in_pool_prefill=False`` baselines (item
+    5f) and stage-decoupled ``dual_device=True`` (item 9); ``None`` means
+    one device."""
 
     def __init__(self, cfg: ModelConfig, params,
                  hw: HardwareProfile = INTEL_CORE_ULTRA_5_125H,
@@ -132,7 +133,8 @@ class RealAgentXPUEngine(AgentXPUEngine):
                  in_pool_prefill: Optional[bool] = None,
                  abortable_runs: bool = True, decode_segment_steps: int = 8,
                  elastic_decode: bool = True,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True,
+                 prefix_cache_tokens: Optional[int] = None,
                  kv_dtype: str = "bf16",
                  kernel_backend: str = "cuda",
                  pool_slots_max: Optional[int] = None,
@@ -175,7 +177,11 @@ class RealAgentXPUEngine(AgentXPUEngine):
             device_resident=device_resident,
             in_pool_prefill=in_pool_prefill, abortable_runs=abortable_runs,
             decode_segment_steps=decode_segment_steps,
-            elastic_decode=elastic_decode, prefix_cache=prefix_cache,
+            elastic_decode=elastic_decode,
+            # shared-prefix KV reuse (DESIGN.md §10); prefix_cache=False is
+            # the cold-prefill baseline (--no-prefix-cache)
+            prefix_cache=prefix_cache,
+            prefix_cache_tokens=prefix_cache_tokens,
             kv_dtype=kv_dtype, kernel_backend=kernel_backend,
             pool_slots_max=pool_slots_max,
             isolate_flow_faults=isolate_flow_faults, faults=faults)

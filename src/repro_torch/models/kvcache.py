@@ -256,12 +256,67 @@ def reset_row(pool, slot: int):
     becomes -1 (every mask treats it as empty), ``pos`` and every recurrent
     state 0 (they accumulate, so masking cannot neutralise them); the K/V
     payload of the previous occupant is left as it is (O(alloc) not
-    O(alloc * d))."""
-    pool["pos"][slot] = 0
+    O(alloc * d)).  Every write is a fill on the device: indexing a CUDA
+    tensor with a Python scalar assigned would copy it from the host."""
+    pool["pos"].narrow(0, slot, 1).zero_()
     for name, axis, (x,) in _walk(pool):
         if name not in _ATTN_PAYLOAD:
             x.narrow(axis, slot, 1).fill_(-1 if name == "slot_pos" else 0)
     return pool
+
+
+def _mask_prefix_view(one, hit: int, cap: int):
+    """Clamp a batch-1 ring view to exactly its first ``hit`` positions:
+    ``slot_pos`` entries at and beyond ``hit`` become -1 (empty: attention
+    masks them out although the K/V payload still holds donor bytes) and
+    ``pos`` becomes ``hit``.  ``cap`` is the view's ring alloc.  The masked
+    ``slot_pos`` and ``pos`` are new tensors: the view's own may name a live
+    donor row, which must not change."""
+    dead = torch.arange(cap, device=one["pos"].device) >= hit
+    out = _map_states(lambda n, a, x: x.masked_fill(dead, -1)
+                      if n == "slot_pos" else x, one)
+    out["pos"] = torch.full_like(one["pos"], hit)
+    return out
+
+
+def copy_prefix_rows(pool, src: int, dst: int, hit: int, hit_cap: int,
+                     full):
+    """Shared-prefix KV reuse, row to row (DESIGN.md §10), in place: row
+    ``dst`` is reset, then ring positions ``[0, hit_cap)`` of donor row
+    ``src`` land in it with ``slot_pos`` masked to ``[0, hit)``, leaving
+    ``dst`` as if tokens ``[0, hit)`` had been prefilled into it.  The
+    ``[hit, hit_cap)`` overhang keeps the donor's K/V bytes, invisible to
+    attention.  Exact only for never-wrapping pure-attention rings
+    (``prefixcache.prefix_reuse_supported``); ``src != dst``, host ints."""
+    reset_row(pool, dst)
+    eff = min(hit_cap, full) if full else hit_cap
+    view = truncate_rings(read_row(pool, src), eff, full)
+    view = _mask_prefix_view(view, hit, eff)
+    return write_row_slice(pool, view, dst, 0, eff)
+
+
+def snapshot_prefix(pool, src: int, depth_cap: int, full):
+    """Detach the leading ``depth_cap`` ring slots of row ``src`` as a
+    batch-1 prefix entry of the shared-prefix store, taken when a donor
+    row is about to be rebound.  Every leaf is a copy: the entry must not
+    change when the row does."""
+    eff = min(depth_cap, full) if full else depth_cap
+    view = truncate_rings(read_row(pool, src), eff, full)
+    out = _map_states(lambda n, a, x: x.clone(), view)
+    out["pos"] = view["pos"].clone()
+    return out
+
+
+def paste_prefix(pool, entry, dst: int, hit: int, hit_cap: int,
+                 entry_alloc: int, full):
+    """Consume a :func:`snapshot_prefix` entry, in place: the store-sourced
+    twin of :func:`copy_prefix_rows` (``hit <= hit_cap <= entry_alloc``).
+    The entry is read, never written."""
+    reset_row(pool, dst)
+    eff = min(hit_cap, entry_alloc)
+    view = truncate_rings(entry, eff, entry_alloc)
+    view = _mask_prefix_view(view, hit, eff)
+    return write_row_slice(pool, view, dst, 0, eff)
 
 
 def copy_into_prefix(new, old, p: int):

@@ -818,6 +818,105 @@ def test_tiny_serve_through_kernels_matches_plain_path(cuda, arch):
     assert out["cuda"] == out["plain"]
 
 
+# -- shared-prefix KV copies on CUDA pools ------------------------------------
+def _random_pool(kv_dtype, device, seed=0):
+    """A 3-row tiny llama3-405b pool (max_len 64) with every leaf drawn
+    from numpy: bf16 K/V or int8 K/V with f32 scales, rows at positions
+    40, 23 and 9."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import init_cache, init_params
+    cfg = get_tiny_config("llama3-405b")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    pool = init_cache(cfg, params, 3, 64, torch.bfloat16, kv_dtype=kv_dtype,
+                      device="cpu")
+    rng = np.random.default_rng(seed)
+    pool["pos"] = torch.tensor([40, 23, 9], dtype=torch.int32)
+    for st in pool["blocks"].values():
+        for name, x in st.items():
+            if name == "slot_pos":
+                ring = torch.arange(x.shape[-1], dtype=torch.int32)
+                x.copy_(torch.where(ring < pool["pos"][None, :, None], ring,
+                                    -1))
+            elif x.dtype == torch.int8:
+                x.copy_(torch.from_numpy(rng.integers(-127, 128, x.shape,
+                                                      dtype=np.int8)))
+            else:
+                x.copy_(torch.from_numpy(rng.uniform(
+                    0.01, 1.0, x.shape).astype(np.float32)))
+    return {"pos": pool["pos"].to(device), "head": (), "tail": (),
+            "blocks": {pi: {n: x.to(device) for n, x in st.items()}
+                       for pi, st in pool["blocks"].items()}}
+
+
+def _pool_leaves(pool):
+    return [pool["pos"]] + [x for st in pool["blocks"].values()
+                            for x in st.values()]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_prefix_helpers_on_cuda_pools_equal_cpu(cuda, kv_dtype):
+    """copy_prefix_rows, snapshot_prefix and paste_prefix on a CUDA pool
+    give the CPU pool's results bit for bit."""
+    from repro_torch.models import (copy_prefix_rows, paste_prefix,
+                                    snapshot_prefix)
+    pools = {d: _random_pool(kv_dtype, d) for d in ("cpu", cuda)}
+    entries = {}
+    for d, pool in pools.items():
+        copy_prefix_rows(pool, 0, 2, 11, 16, 64)
+        entries[d] = snapshot_prefix(pool, 0, 32, 64)
+        paste_prefix(pool, entries[d], 1, 27, 32, 32, 64)
+    for a, b in zip(_pool_leaves(pools["cpu"]), _pool_leaves(pools[cuda])):
+        assert torch.equal(a, b.cpu())
+    assert pools["cpu"]["pos"].tolist() == [40, 27, 11]
+
+
+def test_prefix_copy_and_paste_do_not_sync(cuda):
+    """A row-to-row prefix copy and a store paste run on the device with
+    no host sync (the backend launches them between decode segments)."""
+    from repro_torch.models import (copy_prefix_rows, paste_prefix,
+                                    snapshot_prefix)
+    pool = _random_pool("int8", cuda)
+    entry = snapshot_prefix(pool, 0, 32, 64)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        copy_prefix_rows(pool, 0, 2, 11, 16, 64)
+        paste_prefix(pool, entry, 1, 27, 32, 32, 64)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_tiny_prefix_serve_through_kernels_matches_plain_path(cuda):
+    """Three flows sharing a 24-token system prompt: the hit flows' tails
+    run the pool kernel over copied rows, and every token equals the plain
+    path's serve of the same trace."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core import Priority, Request
+    from repro_torch.core.engine import RealAgentXPUEngine
+    from repro_torch.models import init_params
+    cfg = get_tiny_config("llama3-405b")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab_size, (1, 24))
+    toks = [np.concatenate([system, rng.integers(0, cfg.vocab_size, (1, n))],
+                           axis=1) for n in (9, 23, 14)]
+    out = {}
+    for backend in ("cuda", "plain"):
+        eng = RealAgentXPUEngine(cfg, params, max_len=64,
+                                 kernel_backend=backend)
+        m = eng.serve([Request(id=i, priority=Priority.PROACTIVE,
+                               prompt_len=t.shape[1], max_new_tokens=8,
+                               arrival_time=0.01 * i, tokens=t)
+                       for i, t in enumerate(toks)])
+        assert len(m.completed) == 3
+        st = eng.stats()
+        assert st["prefix_hits"] == 2 and st["prefix_fallbacks"] == 0
+        assert eng.backend.validate() == []
+        out[backend] = [eng.output_tokens(i) for i in range(3)]
+    assert out["cuda"] == out["plain"]
+
+
 
 # -- the training flash attention and its backward ----------------------------
 #   (B, Hq, Hkv, Sq, Skv, hd, window): G 1, 3 and 8, head_dim 32 to 256,

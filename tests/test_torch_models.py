@@ -371,6 +371,118 @@ def test_int8_payload_bytes_equal_and_scales_within_one_ulp():
                      <= ts[..., None] / 2 + 1e-7)
 
 
+# -- shared-prefix KV copies (DESIGN.md §10) ----------------------------------
+# A random pool (every leaf drawn with numpy, rows at assorted positions)
+# built on both sides, then the prefix helpers applied to it; the results
+# must be equal bit for bit.
+PREFIX_MAX_LEN = 64
+
+
+def _random_pool_leaves(jcfg, jp, kv_dtype, rng):
+    """{(section, key, name): numpy leaf} of a random 3-row pool, and its
+    per-row positions."""
+    shape = J.init_cache(jcfg, jp, 3, PREFIX_MAX_LEN, jnp.float32,
+                         kv_dtype=kv_dtype)
+    pos = np.array([40, 23, 9], np.int32)
+    leaves = {("pos", None, None): pos}
+    for pi, st in shape["blocks"].items():
+        for name, x in st.items():
+            if name == "slot_pos":
+                ring = np.arange(x.shape[-1], dtype=np.int32)
+                v = np.where(ring < pos[None, :, None], ring, -1)
+                v = np.broadcast_to(v, x.shape).astype(np.int32)
+            elif x.dtype == jnp.int8:
+                v = rng.integers(-127, 128, x.shape, dtype=np.int8)
+            elif name in ("k_scale", "v_scale"):
+                v = rng.uniform(0.01, 1.0, x.shape).astype(np.float32)
+            else:
+                v = rng.standard_normal(x.shape, dtype=np.float32)
+            leaves[("blocks", pi, name)] = v
+    return leaves
+
+
+def _pools_from(leaves, dtype):
+    """The same pool as the reference's (jax) and the port's (torch)."""
+    jpool = {"pos": None, "head": (), "tail": (), "blocks": {}}
+    tpool = {"pos": None, "head": (), "tail": (), "blocks": {}}
+    tdt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[dtype]
+    for (sec, pi, name), v in leaves.items():
+        jv, tv = jnp.asarray(v), torch.from_numpy(np.array(v))
+        if v.dtype == np.float32 and name in ("k", "v"):
+            jv, tv = jv.astype(dtype), tv.to(tdt)
+        if sec == "pos":
+            jpool["pos"], tpool["pos"] = jv, tv
+        else:
+            jpool["blocks"].setdefault(pi, {})[name] = jv
+            tpool["blocks"].setdefault(pi, {})[name] = tv
+    return jpool, tpool
+
+
+def _as_np(x):
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16
+                      else x)
+
+
+def _assert_pool_bitwise(tpool, jpool):
+    assert np.array_equal(tpool["pos"].numpy(), np.asarray(jpool["pos"]))
+    for pi, st in jpool["blocks"].items():
+        assert set(tpool["blocks"][pi]) == set(st)
+        for name, jv in st.items():
+            tv = tpool["blocks"][pi][name]
+            assert np.array_equal(_as_np(tv), _as_np(jv)), name
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [(jnp.bfloat16, None),
+                                            (jnp.bfloat16, "int8")],
+                         ids=["bf16", "int8"])
+@pytest.mark.parametrize("hit,hit_cap", [(16, 16), (11, 16), (5, 32)],
+                         ids=["pow2", "not_pow2", "cap_beyond"])
+def test_prefix_copy_snapshot_paste_match_jax(hit, hit_cap, dtype,
+                                              kv_dtype):
+    """``copy_prefix_rows``, then ``snapshot_prefix`` + ``paste_prefix``
+    (after the donor row was overwritten) against the reference's on the
+    same random pool: payload, scales, ``slot_pos`` and ``pos`` bit for
+    bit, the donor row unchanged by the copy, the snapshot unchanged by
+    the overwrite of its donor row."""
+    jcfg, jp, _, _ = _weights("llama3-405b")
+    rng = np.random.default_rng(hit * 100 + hit_cap)
+    leaves = _random_pool_leaves(jcfg, jp, kv_dtype, rng)
+    jpool, tpool = _pools_from(leaves, dtype)
+    full, src, dst = PREFIX_MAX_LEN, 0, 2
+    donor = _row(tpool, src)
+    jpool = J.copy_prefix_rows(jpool, jnp.int32(src), jnp.int32(dst),
+                               jnp.int32(hit), hit_cap, full)
+    assert T.copy_prefix_rows(tpool, src, dst, hit, hit_cap, full) is tpool
+    _assert_pool_bitwise(tpool, jpool)
+    assert all(torch.equal(x, y) for x, y in zip(_row(tpool, src), donor))
+    assert tpool["pos"][dst] == hit
+    assert (tpool["blocks"]["0"]["slot_pos"][:, dst, hit:] == -1).all()
+    # snapshot the donor, overwrite its row, paste into row 1
+    depth_cap = 32
+    jentry = J.snapshot_prefix(jpool, jnp.int32(src), depth_cap, full)
+    tentry = T.snapshot_prefix(tpool, src, depth_cap, full)
+    kept = _clone(tentry)
+    other = _random_pool_leaves(jcfg, jp, kv_dtype,
+                                np.random.default_rng(hit + 1))
+    jother, tother = _pools_from(other, dtype)
+    jpool = J.copy_into_prefix(jpool, J.slice_rows(jother, 1), 1)
+    tpool["pos"][:1] = tother["pos"][:1]
+    for pi, st in tother["blocks"].items():
+        for name, x in st.items():
+            tpool["blocks"][pi][name][:, :1] = x[:, :1]
+    _assert_pool_bitwise(tpool, jpool)
+    assert _pool_equal(tentry, kept)
+    jpool = J.paste_prefix(jpool, jentry, jnp.int32(1), jnp.int32(hit),
+                           min(hit_cap, depth_cap), depth_cap, full)
+    T.paste_prefix(tpool, tentry, 1, hit, min(hit_cap, depth_cap),
+                   depth_cap, full)
+    _assert_pool_bitwise(tpool, jpool)
+    assert _pool_equal(tentry, kept)  # the entry is read, never written
+    assert tpool["pos"].tolist() == np.asarray(jpool["pos"]).tolist()
+
+
 @pytest.mark.parametrize("arch", ["llava-next-34b", "deepseek-v2-lite-16b",
                                   "whisper-tiny"])
 def test_unported_families_raise_naming_roadmap(arch):

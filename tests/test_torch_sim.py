@@ -1,7 +1,13 @@
 """PyTorch port: the copied scheduling layer makes the reference's decisions,
 the training substrate (data pipeline, schedule, AdamW, checkpoints, the
-loop and its launcher) matches the reference's, and the port stands alone
-(no ``jax``, no ``repro`` import)."""
+loop and its launcher) matches the reference's, the port stands alone
+(no ``jax``, no ``repro`` import), and the serving layer on top of the real
+engine behaves as the reference's: mirrors of tests/test_faults.py's
+real-backend tests and of tests/test_frontend.py, and the serving
+launcher's summaries."""
+import copy
+import functools
+import json
 import os
 import subprocess
 import sys
@@ -65,7 +71,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 assert {"repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.train.train_loop", "repro_torch.train.optimizer",
         "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
-        "repro_torch.launch.train"} <= set(sys.modules)
+        "repro_torch.launch.train", "repro_torch.launch.serve",
+        "repro_torch.launch.frontend"} <= set(sys.modules)
 
 from repro_torch.configs import get_tiny_config
 from repro_torch.core import Priority, Request
@@ -292,3 +299,504 @@ def test_train_launcher_checkpoints_and_resumes(tmp_path):
     assert "(step 2)" in second and "step     2" in second
     assert "step     1" not in second
     assert os.path.exists(os.path.join(ck, "step_00000003.npz"))
+
+
+# -- mirrors of tests/test_faults.py's real-backend tests ----------------------
+# The same faults injected into the reference's engine and the port's, on
+# the same weights and requests: terminal statuses, fault strings, tokens
+# (partial outputs included) and every stats() value must be equal.
+@functools.lru_cache(maxsize=None)
+def _llama():
+    """Tiny llama3-405b weights of the reference and their port."""
+    from repro.configs import get_tiny_config
+    from repro.models import init_params
+    from repro_torch.models import from_jax_params, module_from_state_dict
+    cfg = get_tiny_config("llama3-405b")
+    jp = init_params(cfg, jax.random.PRNGKey(0), jnp.float32)
+    tp = module_from_state_dict(from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jp)))
+    return cfg, jp, tp
+
+
+def _fault_engines(faults=None, **kw):
+    """(reference engine, port engine) as tests/test_faults.py builds them
+    (max_len 128, strict invariants on), each with its own injector from
+    the ``faults`` list of ``Fault`` keyword dicts."""
+    from repro.core.engine import RealAgentXPUEngine as JEngine
+    from repro.core.faults import Fault as JFault
+    from repro.core.faults import FaultInjector as JInjector
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.engine import RealAgentXPUEngine as TEngine
+    from repro_torch.core.faults import Fault as TFault
+    from repro_torch.core.faults import FaultInjector as TInjector
+    cfg, jp, tp = _llama()
+    kw.setdefault("strict_invariants", True)
+    jf = tf = None
+    if faults is not None:
+        jf = JInjector([JFault(**f) for f in faults])
+        tf = TInjector([TFault(**f) for f in faults])
+    return (JEngine(cfg, jp, max_len=128, dual_device=False, faults=jf,
+                    **kw),
+            TEngine(get_tiny_config("llama3-405b"), tp, max_len=128,
+                    device="cpu", faults=tf, **kw))
+
+
+def _fault_reqs(rng_seed, arrivals, prompt_lens, out_tokens, reactive=(),
+                shared=0):
+    """test_faults.py's ``_mk_requests`` (or, with ``shared``, its shared
+    prefix trace) for both packages: (reference requests, port requests)."""
+    from repro.core import Priority as JP
+    from repro.core import Request as JR
+    from repro_torch.core import Priority as TP
+    from repro_torch.core import Request as TR
+    vocab = _llama()[0].vocab_size
+    rng = np.random.default_rng(rng_seed)
+    system = rng.integers(0, vocab, (1, shared))
+    toks = [np.concatenate([system, rng.integers(0, vocab, (1, p))], axis=1)
+            for p in prompt_lens]
+    return [[R(id=i, priority=P.REACTIVE if i in reactive else P.PROACTIVE,
+               prompt_len=t.shape[1], max_new_tokens=out_tokens,
+               arrival_time=a, tokens=t.copy())
+             for i, (a, t) in enumerate(zip(arrivals, toks))]
+            for R, P in ((JR, JP), (TR, TP))]
+
+
+def _serve_faulty(jeng, teng, reqs, hook=None):
+    """Serve each side's requests (with ``hook`` as every flow's on_token)
+    and hold the port to the reference.  Returns the port's metrics."""
+    out = []
+    for eng, rs in zip((jeng, teng), reqs):
+        for r in rs:
+            eng.submit(r, on_token=hook)
+        out.append(eng.run())
+    jm, tm = out
+    by = [{r.id: (r.terminal_status, r.fault) for r in m.completed}
+          for m in out]
+    assert by[1] == by[0]
+    ids = [r.id for r in reqs[1]]
+    assert [teng.output_tokens(i) for i in ids] == \
+        [jeng.output_tokens(i) for i in ids]
+    ts, js = teng.stats(), jeng.stats()
+    assert set(ts) == set(js)
+    exempt = {"kernel_backend", "co_execution_decode_slowdown_measured"}
+    assert {k: v for k, v in ts.items() if k not in exempt} == \
+        {k: v for k, v in js.items() if k not in exempt}
+    for k in ("deadline_aborts", "fault_quarantines"):
+        assert getattr(teng.last_sched, k) == getattr(jeng.last_sched, k)
+    _assert_no_leaks(teng.backend)
+    return tm
+
+
+def _assert_no_leaks(backend):
+    assert backend.validate() == []
+    assert not backend._slot
+    assert len(backend._free) == backend.pool_slots
+
+
+def _raise_at(victim, after, msg):
+    def boom(req, tok):
+        if req.id == victim and req.decoded >= after:
+            raise RuntimeError(msg)
+    return boom
+
+
+def test_hook_exception_quarantines_one_flow():
+    jeng, teng = _fault_engines(decode_segment_steps=2)
+    m = _serve_faulty(jeng, teng,
+                      _fault_reqs(71, [0.0] * 3, [12, 14, 16], 10),
+                      _raise_at(1, 3, "user callback exploded"))
+    by_id = {r.id: r for r in m.completed}
+    assert by_id[1].terminal_status == "failed"
+    assert "hook" in by_id[1].fault and "exploded" in by_id[1].fault
+    assert 1 <= len(teng.output_tokens(1)) < 10
+    assert teng.stats()["quarantined_flows"] == 1
+
+
+def test_transient_device_fault_replays_segment():
+    jeng, teng = _fault_engines(
+        [dict(site="device", stage="decode", nth=2),
+         dict(site="device", stage="prefill", nth=1)],
+        decode_segment_steps=2)
+    m = _serve_faulty(jeng, teng, _fault_reqs(73, [0.0, 0.0], [12, 14], 8))
+    st = teng.stats()
+    assert st["device_fault_retries"] == 2 and st["quarantined_flows"] == 0
+    assert all(r.terminal_status == "completed" for r in m.completed)
+
+
+@pytest.mark.parametrize("stage,nth", [("prefill", 1), ("prefix_copy", 1)])
+def test_permanent_device_fault_quarantines_only_victim(stage, nth):
+    """A permanent device fault pinned to flow 1, mid-prefill-chunk or at
+    its prefix-cache copy (the flows share a 16-token prefix)."""
+    jeng, teng = _fault_engines([dict(site="device", stage=stage, nth=nth,
+                                      req_id=1, transient=False)])
+    m = _serve_faulty(jeng, teng,
+                      _fault_reqs(79, [0.0, 0.002, 0.004], [12, 10, 14], 6,
+                                  shared=16))
+    by_id = {r.id: r for r in m.completed}
+    assert by_id[1].terminal_status == "failed"
+    assert "prefill" in by_id[1].fault
+    assert by_id[0].terminal_status == by_id[2].terminal_status == \
+        "completed"
+    if stage == "prefix_copy":
+        assert teng.stats()["prefix_hits"] >= 1
+
+
+def test_fault_mid_fused_segment_keeps_survivor_rows():
+    jeng, teng = _fault_engines(decode_segment_steps=2, max_fused_steps=32)
+    m = _serve_faulty(jeng, teng,
+                      _fault_reqs(83, [0.0] * 3, [12, 14, 16], 16),
+                      _raise_at(0, 5, "mid-fused hook fault"))
+    assert teng.stats()["fused_runs"] > 0
+    assert {r.id: r.terminal_status for r in m.completed} == {
+        0: "failed", 1: "completed", 2: "completed"}
+
+
+def test_fault_at_finish_forces_cleanup_through():
+    jeng, teng = _fault_engines([dict(site="device", stage="finish", nth=1,
+                                      transient=False)])
+    m = _serve_faulty(jeng, teng, _fault_reqs(89, [0.0], [12], 4))
+    assert m.completed[0].terminal_status == "completed"
+    assert teng.stats()["flow_faults"] == 1  # counted, not raised
+
+
+def test_alloc_fault_is_flow_attributable():
+    jeng, teng = _fault_engines([dict(site="alloc", req_id=1)])
+    m = _serve_faulty(jeng, teng, _fault_reqs(97, [0.0, 0.0], [12, 14], 5))
+    assert {r.id: r.terminal_status for r in m.completed} == {
+        0: "completed", 1: "failed"}
+
+
+def test_grow_pool_capped_raises_allocation_fault():
+    from repro_torch.core.faults import AllocationFault
+    jeng, teng = _fault_engines(pool_slots=1, pool_slots_max=1)
+    with pytest.raises(AllocationFault, match="pool_slots_max") as got:
+        teng.backend._grow_pool()
+    with pytest.raises(Exception) as want:
+        jeng.backend._grow_pool()
+    assert str(got.value) == str(want.value)
+    _, free = _fault_engines(pool_slots=1)
+    free.backend._grow_pool()  # uncapped growth still doubles
+    assert free.backend.pool_slots == 2 and free.backend.validate() == []
+
+
+def test_deadline_abort_at_segment_boundary():
+    """The victim's deadline lies two-thirds of the way through its
+    fault-free decode (sim time is deterministic), so the abort lands
+    mid-decode on both sides."""
+    _, eng0 = _fault_engines(decode_segment_steps=2)
+    reqs = _fault_reqs(101, [0.0, 0.0], [12, 14], 12)
+    m0 = eng0.serve(copy.deepcopy(reqs[1]))
+    v0 = {r.id: r for r in m0.completed}[1]
+    deadline = v0.ttft + (v0.e2e_latency - v0.ttft) * 2 / 3
+    for side in reqs:
+        side[1].deadline = deadline
+    jeng, teng = _fault_engines(decode_segment_steps=2)
+    m = _serve_faulty(jeng, teng, reqs)
+    assert {r.id: r.terminal_status for r in m.completed} == {
+        0: "completed", 1: "timed_out"}
+    assert 1 <= len(teng.output_tokens(1)) < 12
+    assert teng.last_sched.deadline_aborts == 1
+
+
+def test_legacy_raise_out_mode():
+    jeng, teng = _fault_engines(isolate_flow_faults=False,
+                                strict_invariants=False)
+    reqs = _fault_reqs(103, [0.0], [12], 6)
+
+    def boom(req, tok):
+        raise RuntimeError("legacy raise-out")
+
+    for eng, rs in zip((jeng, teng), reqs):
+        eng.submit(rs[0], on_token=boom)
+        with pytest.raises(RuntimeError, match="legacy raise-out"):
+            eng.run()
+    assert teng.output_tokens(0) == jeng.output_tokens(0)
+    _assert_no_leaks(teng.backend)
+
+
+def test_validate_catches_corruption():
+    from repro_torch.core.faults import InvariantViolation
+    jeng, teng = _fault_engines()
+    for be in (teng.backend, jeng.backend):
+        assert be.validate() == []
+        be._free.append(0)  # a duplicate free slot
+    assert teng.backend.validate() == jeng.backend.validate() != []
+    with pytest.raises(InvariantViolation):
+        teng.backend.validate(strict=True)
+    teng.backend._free.remove(0)
+    assert teng.backend.validate() == []
+
+
+def test_standard_chaos_scenario():
+    """Pool at cap, one hook fault, one transient device fault and one
+    deadline expiry in one run."""
+    jeng, teng = _fault_engines(
+        [dict(site="device", stage="decode", nth=3),
+         dict(site="deadline", req_id=4, nth=8, period=1)],
+        decode_segment_steps=2, pool_slots=2, pool_slots_max=4,
+        admission_queue_len=4)
+    m = _serve_faulty(jeng, teng,
+                      _fault_reqs(107, [0.002 * i for i in range(6)],
+                                  [12, 14, 16, 12, 14, 16], 10,
+                                  reactive=(5,)),
+                      _raise_at(2, 2, "chaos hook fault"))
+    st = teng.stats()
+    assert {r.id: r.terminal_status for r in m.completed} == {
+        0: "completed", 1: "completed", 2: "failed", 3: "completed",
+        4: "timed_out", 5: "completed"}
+    assert st["device_fault_retries"] >= 1 and st["pool_slots"] <= 4
+
+
+# -- mirrors of tests/test_frontend.py on the port's engine --------------------
+# Strict invariants on: the backend audits slot and pin accounting after
+# every event-loop turn, so a cancel path that leaked fails here.
+@pytest.fixture(scope="module")
+def fe_engine():
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.engine import RealAgentXPUEngine
+    cfg = get_tiny_config("llama3-405b")
+    eng = RealAgentXPUEngine(cfg, _llama()[2], max_len=128, device="cpu",
+                             strict_invariants=True, max_fused_steps=8,
+                             decode_segment_steps=2)
+    return cfg, eng
+
+
+def _prompt(cfg, seed=0, plen=12):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, plen))
+
+
+def test_frontend_stream_and_result(fe_engine):
+    from repro_torch.core.requests import Priority
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+    with ServingFrontend(eng) as fe:
+        h1 = fe.submit(_prompt(cfg, 1), priority=Priority.REACTIVE,
+                       max_new_tokens=6)
+        h2 = fe.submit(_prompt(cfg, 2), max_new_tokens=4)
+        toks = list(h1.tokens(timeout=120))
+        assert len(toks) == 6
+        r1, r2 = h1.result(timeout=120), h2.result(timeout=120)
+        assert r1["status"] == "completed" and r1["tokens"] == toks
+        assert r2["status"] == "completed" and r2["n_tokens"] == 4
+        assert len(r1["token_walls"]) == 6
+        assert r1["token_walls"] == sorted(r1["token_walls"])
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_streams_match_direct_serve(fe_engine):
+    from repro_torch.core.requests import Priority, Request
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+    p = _prompt(cfg, 3, plen=16)
+    with ServingFrontend(eng) as fe:
+        streamed = fe.submit(p, max_new_tokens=8).result(timeout=120)
+    m = eng.serve([Request(id=777, priority=Priority.PROACTIVE,
+                           prompt_len=16, max_new_tokens=8,
+                           arrival_time=0.0, tokens=p.copy())])
+    assert [r.id for r in m.completed] == [777]
+    assert streamed["tokens"] == eng.output_tokens(777)
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_cancel_mid_stream_releases_slot(fe_engine):
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+    with ServingFrontend(eng) as fe:
+        victim = fe.submit(_prompt(cfg, 4), max_new_tokens=96)
+        assert victim.next_token(timeout=120) is not None
+        victim.cancel()
+        r = victim.result(timeout=120)
+        assert r["status"] == "cancelled"
+        assert 1 <= r["n_tokens"] < 96  # aborted at a segment boundary
+        after = fe.submit(_prompt(cfg, 5), max_new_tokens=4)
+        assert after.result(timeout=120)["status"] == "completed"
+        assert fe.stats()["cancelled_flows"] >= 1
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_cancel_before_dispatch(fe_engine):
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+    fe = ServingFrontend(eng)  # NOT started: the inbox can only grow
+    h = fe.submit(_prompt(cfg, 6), max_new_tokens=4)
+    h.cancel()
+    fe.start()
+    assert h.result(timeout=120)["status"] == "cancelled"
+    fe.close(timeout=120)
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_backpressure_disconnects_slow_consumer(fe_engine):
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+    with ServingFrontend(eng, max_buffered_tokens=4) as fe:
+        slow = fe.submit(_prompt(cfg, 7), max_new_tokens=96)
+        healthy = fe.submit(_prompt(cfg, 8), max_new_tokens=6)
+        assert len(list(healthy.tokens(timeout=120))) == 6
+        r = slow.result(timeout=120)
+        assert r["status"] == "cancelled" and r["overflowed"]
+        assert fe.stats()["backpressure_disconnects"] >= 1
+        assert healthy.result(timeout=120)["status"] == "completed"
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_graceful_drain_retires_everything(fe_engine):
+    from repro_torch.core.requests import Priority
+    from repro_torch.launch.frontend import FrontendClosed, ServingFrontend
+    cfg, eng = fe_engine
+    fe = ServingFrontend(eng).start()
+    handles = [fe.submit(_prompt(cfg, 10 + i), max_new_tokens=4,
+                         priority=Priority.REACTIVE if i % 3 == 0
+                         else Priority.PROACTIVE)
+               for i in range(7)]
+    fe.drain(timeout=120)
+    assert all(h.status == "completed" for h in handles)
+    with pytest.raises(FrontendClosed):
+        fe.submit(_prompt(cfg, 99), max_new_tokens=2)
+    st = fe.stats()
+    assert st["flows_submitted"] == st["flows_retired"] == 7
+    assert st["flows_in_flight"] == 0
+    fe.close(timeout=120)
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_asyncio_consumption(fe_engine):
+    import asyncio
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+
+    async def one_flow(fe, seed, n):
+        h = await fe.asubmit(_prompt(cfg, seed), max_new_tokens=n)
+        got = []
+        async for tok in h:
+            got.append(tok)
+        return h, got
+
+    async def main(fe):
+        return await asyncio.gather(*[one_flow(fe, 20 + i, 3 + i)
+                                      for i in range(4)])
+
+    with ServingFrontend(eng) as fe:
+        results = asyncio.run(main(fe))
+    for i, (h, got) in enumerate(results):
+        assert h.status == "completed" and len(got) == 3 + i
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_concurrent_submitters(fe_engine):
+    import threading
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, eng = fe_engine
+    out = {}
+    with ServingFrontend(eng) as fe:
+        def client(k):
+            h = fe.submit(_prompt(cfg, 40 + k), max_new_tokens=3)
+            out[k] = h.result(timeout=120)
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    assert sorted(out) == list(range(6))
+    assert all(r["status"] == "completed" and r["n_tokens"] == 3
+               for r in out.values())
+    _assert_no_leaks(eng.backend)
+
+
+def test_frontend_streams_match_reference_frontend():
+    """The port's front end over the port's engine streams what the
+    reference's front end streams over the reference's engine, flow for
+    flow, on the same weights (three flows sharing a system prompt, one
+    reactive)."""
+    from repro.core.requests import Priority as JPriority
+    from repro.launch.frontend import ServingFrontend as JFrontend
+    from repro_torch.core.requests import Priority as TPriority
+    from repro_torch.launch.frontend import ServingFrontend as TFrontend
+    jeng, teng = _fault_engines(max_fused_steps=8, decode_segment_steps=2)
+    cfg = _llama()[0]
+    system = _prompt(cfg, 50, plen=20)
+    prompts = [np.concatenate([system, _prompt(cfg, 51 + i, plen=6 + i)],
+                              axis=1) for i in range(3)]
+    streams = []
+    for eng, fe_cls, prio in ((jeng, JFrontend, JPriority),
+                              (teng, TFrontend, TPriority)):
+        with fe_cls(eng) as fe:
+            hs = [fe.submit(p, max_new_tokens=6,
+                            priority=prio.REACTIVE if i == 2
+                            else prio.PROACTIVE)
+                  for i, p in enumerate(prompts)]
+            streams.append([h.result(timeout=120)["tokens"] for h in hs])
+    assert streams[1] == streams[0]
+    assert all(len(s) == 6 for s in streams[1])
+    _assert_no_leaks(teng.backend)
+
+
+# -- the serving launcher -------------------------------------------------------
+def _launcher_json(main, argv, capsys):
+    main(argv + ["--json"])
+    return json.loads(capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("scheduler", ["agent.xpu", "continuous_batching"])
+def test_serve_launcher_sim_summary_matches_reference(scheduler, capsys):
+    from repro.launch.serve import main as j_main
+    from repro_torch.launch.serve import main as t_main
+    argv = ["--scheduler", scheduler, "--rate", "1.0", "--horizon", "60"]
+    want = _launcher_json(j_main, argv, capsys)
+    assert want["n_completed"] > 0
+    assert _launcher_json(t_main, argv, capsys) == want
+
+
+def test_serve_launcher_real_cpu_summary_matches_reference(capsys):
+    """``--real --device cpu`` against the reference's ``--real`` at a
+    short horizon: the summary is on the scheduler's clock, and equal
+    (its weights differ, the port's drawn from its own seeded generator,
+    but no summary key depends on a token's value)."""
+    from repro.launch.serve import main as j_main
+    from repro_torch.launch.serve import main as t_main
+    argv = ["--real", "--horizon", "10"]
+    want = _launcher_json(j_main, argv, capsys)
+    got = _launcher_json(t_main, argv + ["--device", "cpu"], capsys)
+    assert got == want
+    assert got["n_completed"] > 0 and got["prefix_hit_tokens"] > 0
+
+
+def test_serve_launcher_real_needs_a_gpu_unless_asked_for_cpu():
+    from repro_torch.launch.serve import main
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(["--real", "--horizon", "5"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        main(["--real", "--horizon", "5", "--prefill-device", "1",
+              "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="5f"):
+        main(["--real", "--horizon", "5", "--no-in-pool-prefill",
+              "--device", "cpu"])
+
+
+def test_serve_launcher_sim_mode_imports_no_torch():
+    """Sim mode imports no torch, as the reference's imports no JAX."""
+    script = r"""
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("torch", "jax", "repro"):
+            raise ImportError(f"{name} import blocked in sim mode")
+        return None
+sys.meta_path.insert(0, Block())
+from repro_torch.launch.serve import main
+main(["--horizon", "30", "--json"])
+print("OK")
+"""
+    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"}
+    env.update({k: os.environ[k] for k in ("HOME", "TMPDIR")
+                if k in os.environ})
+    out = subprocess.run([sys.executable, "-c", script],
+                         capture_output=True, text=True, env=env,
+                         cwd=__file__.rsplit("/", 2)[0], timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.rstrip().endswith("OK")
