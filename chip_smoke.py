@@ -31,9 +31,16 @@ to a cold twin's minus the hit tokens) and cold; ``[faults]``: 4 flows
 with a transient device fault at every fifth decode check; ``[frontend]``:
 4 flows from two threads through ``ServingFrontend``, one cancelled after
 its 4th token -- each checked against the plain path, and runs
-``python -m repro_torch.launch.serve --real`` (``[launcher]``), then
-prints the kernel table as JSON and, as its last line, ``{"ok": true,
-"device": {...}}``.  Any failed phase
+``python -m repro_torch.launch.serve --real`` (``[launcher]``); then the
+stage-decoupled serve (``[dual]``: prefill staged on a second stream of
+the card, or on a second GPU where one is visible, the KV handed off into
+the decode pool; the 8-flow trace on ``llama3.2-3b`` and 4 flows on
+``recurrentgemma-9b``, beside a single-lane twin, with a profiled window
+showing the two streams' kernels and their overlap) and the reference's
+two baselines (``[baselines]``: the pre-donation and the scratch-cache
+prefill serves, 4 flows each, beside the default), each checked against
+the plain path; then prints the kernel table as JSON and, as its last
+line, ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
 is visible or when run outside the repository.  Imports no JAX.
 """
@@ -116,6 +123,10 @@ TRAIN_LR = 3e-6
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 FLASH_DROP = 64
+# the serving attention kernels at a staged prefill's shapes: one row over
+# the whole 2048-slot ring, no kv_limit (kernel_phase's last cases)
+STAGED_DECODE = "bf16 B=1 staged ring, 300 live"
+STAGED_POOL = "bf16 C=512 staged ring, 1024 live"
 # kernels each served path must launch with kernel_backend="cuda"
 PATH_KERNELS = {ARCH: ("decode_attention", "flash_attention_pool"),
                 MOE_ARCH: ("decode_attention", "flash_attention_pool",
@@ -257,6 +268,17 @@ def decode_cases(gen):
                   k_scale=None if ks is None else ks,
                   v_scale=None if vs is None else vs)
         cases.append((name, args, kw, int8))
+    # a staged prefill's 1-token bucket (DualDeviceBackend, or the scratch
+    # baseline): one row over its whole 2048-slot ring with no kv_limit,
+    # 300 positions live
+    k, _ = _kv(gen, (1, S, 8, 128), torch.bfloat16, False)
+    v, _ = _kv(gen, (1, S, 8, 128), torch.bfloat16, False)
+    q = torch.randn((1, 24, 128), generator=gen, device="cuda").bfloat16()
+    cur = torch.full((1,), 299, dtype=torch.int32, device="cuda")
+    cases.append((STAGED_DECODE, (q, k, v, _ring_positions(1, S, 300).cuda(),
+                                  cur),
+                  dict(window=None, kv_limit=None, k_scale=None,
+                       v_scale=None), False))
     return cases
 
 
@@ -343,6 +365,17 @@ def pool_cases(gen):
                   k_scale=None if ks is None else ks.transpose(1, 2),
                   v_scale=None if vs is None else vs.transpose(1, 2))
         cases.append((name, args, kw, int8))
+    # a staged prefill's chunk: positions [512, 1024) of one row's whole
+    # 2048-slot ring (no kv_limit), the 512 before it live
+    k, _ = _kv(gen, (1, S, 8, 128), torch.bfloat16, False)
+    v, _ = _kv(gen, (1, S, 8, 128), torch.bfloat16, False)
+    q = torch.randn((1, 512, 24, 128), generator=gen,
+                    device="cuda").bfloat16()
+    pos_q = torch.arange(512, 1024, dtype=torch.int32, device="cuda")[None]
+    sp = _ring_positions(1, S, 1024).cuda()
+    cases.append((STAGED_POOL, (q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), pos_q, sp),
+                  dict(window=None, k_scale=None, v_scale=None), False))
     return cases
 
 
@@ -1170,14 +1203,15 @@ def _requests(flows, late=False):
             for f in flows if f["late"] == late]
 
 
-def make_flows(cfg, n_proactive, n_out, rng):
+def make_flows(cfg, n_proactive, n_out, rng, hw=None):
     """Per-flow dicts: prompts of 64-512 tokens; ``n_proactive`` proactive
     flows, then two reactive ones.  The first reactive flow arrives in the
     middle of the proactive flows' decode phase (found by a simulation-only
-    run of the same scheduler, which makes the real engine's decisions), so
-    it lands inside a committed fused run; the second is submitted from an
-    on_token callback during the run."""
-    from repro_torch.core import AgentXPUEngine
+    run of the same scheduler on hardware profile ``hw``, the engine's
+    default if None, which makes the real engine's decisions), so it lands
+    inside a committed fused run; the second is submitted from an on_token
+    callback during the run."""
+    from repro_torch.core import INTEL_CORE_ULTRA_5_125H, AgentXPUEngine
     flows = []
     lens = rng.integers(64, 513, size=n_proactive + 2)
     for i in range(n_proactive + 2):
@@ -1186,7 +1220,7 @@ def make_flows(cfg, n_proactive, n_out, rng):
             id=i, arrival=0.02 * i, reactive=reactive,
             late=i == n_proactive + 1, out=n_out,
             tokens=rng.integers(0, cfg.vocab_size, (1, int(lens[i])))))
-    sim = AgentXPUEngine(cfg)
+    sim = AgentXPUEngine(cfg, hw or INTEL_CORE_ULTRA_5_125H)
     sim.run_trace(_requests([f for f in flows if not f["reactive"]]))
     steps = [t for kind, _, t in sim.last_trace if kind == "decode_step"]
     flows[n_proactive]["arrival"] = steps[int(len(steps) * 0.4)]
@@ -1203,14 +1237,16 @@ def _record_prefill_chunks(eng):
     prefills again from the hit)."""
     chunks = {}
     backend = eng.backend
-    run, copy = backend._run_bucketed_in_pool, backend._copy_prefix
+    copy = backend._copy_prefix
 
-    def recording(req, start, n):
-        if start == 0:
-            chunks[req.id] = []
-        if n > 0:
-            chunks[req.id].append(n)
-        return run(req, start, n)
+    def recording(run):
+        def wrapped(req, start, n):
+            if start == 0:
+                chunks[req.id] = []
+            if n > 0:
+                chunks[req.id].append(n)
+            return run(req, start, n)
+        return wrapped
 
     def copying(req, hit):
         done = copy(req, hit)
@@ -1218,7 +1254,11 @@ def _record_prefill_chunks(eng):
             chunks[req.id] = [(done,)]
         return done
 
-    backend._run_bucketed_in_pool = recording
+    # in-pool prefill, the scratch-cache baseline's, a staged prefill's:
+    # each extends a B=1 view or cache in these chunks
+    for name in ("_run_bucketed_in_pool", "_run_bucketed", "_run_staged"):
+        if hasattr(backend, name):
+            setattr(backend, name, recording(getattr(backend, name)))
     backend._copy_prefix = copying
     return chunks
 
@@ -1244,19 +1284,22 @@ def _tally_scans(ops, calls):
 
 
 def serve(cfg, params, flows, *, device, dtype, kv_dtype="bf16",
-          inject_after=40, scan_calls=None, **engine_kw):
+          inject_after=40, scan_calls=None, on_engine=None, **engine_kw):
     """Serve ``flows`` through the port's engine (its defaults, the prefix
     cache on among them, unless ``engine_kw`` says otherwise).  Returns
     (engine, metrics, wall seconds, per-flow wall TTFT seconds, launches
     during the run, per-flow prefill chunk lengths); with a ``scan_calls``
     dict, also fills it with each scan's prefill and decode calls during
-    the run."""
+    the run.  ``on_engine(engine)`` is called before anything is
+    submitted."""
     from repro_torch.core.engine import RealAgentXPUEngine
     from repro_torch.kernels import ops
     eng = RealAgentXPUEngine(cfg, params, max_len=MAX_LEN, dtype=dtype,
                              device=device, pool_slots=POOL,
                              kv_dtype=kv_dtype, **engine_kw)
     chunks = _record_prefill_chunks(eng)
+    if on_engine is not None:
+        on_engine(eng)
     t_sub, t_first, late, streamed = {}, {}, [], [0]
 
     def on_token(req, tok):
@@ -1317,7 +1360,8 @@ def forward_launches(cfg):
             "rwkv6_scan": kinds.count("rwkv6")}
 
 
-def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True):
+def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True,
+                fused=True):
     done = {r.id: r for r in metrics.completed}
     for f in flows:
         toks = eng.output_tokens(f["id"])
@@ -1343,7 +1387,7 @@ def check_serve(cfg, eng, metrics, flows, launches, label, need_abort=True):
         raise AssertionError(
             f"[{label}] launches {launches} are not {per_call} per forward "
             f"call")
-    if not st["host_syncs"] < decode_tokens:
+    if fused and not st["host_syncs"] < decode_tokens:
         raise AssertionError(f"[{label}] host_syncs {st['host_syncs']} >= "
                              f"{decode_tokens} decode tokens")
     if need_abort and st["aborted_runs"] < 1:
@@ -1966,6 +2010,314 @@ def launcher_phase():
     return dict(wall_s=wall, requests=n, **summ)
 
 
+# -- stage-decoupled serving and the reference's baselines ----------------------
+def _watch_staging(decisions):
+    """An ``on_engine`` hook recording each flow's staging decision (True:
+    prefilled on the prefill lane) of a ``DualDeviceBackend``."""
+    def watch(eng):
+        backend = eng.backend
+        decide = backend._stage_for
+
+        def stage_for(req, seq_start):
+            staged = decide(req, seq_start)
+            decisions.setdefault(req.id, staged)
+            return staged
+        backend._stage_for = stage_for
+    return watch
+
+
+def _segment_walls(backend):
+    """Per-step decode-segment wall (ms) with no prefill in flight and with
+    one (the backend's contention buckets, paper §6.4)."""
+    def per(t, n):
+        return t / n * 1e3 if n else None
+    return (per(backend._seg_solo_time, backend._seg_solo_steps),
+            per(backend._seg_co_time, backend._seg_co_steps))
+
+
+def _busy(intervals):
+    """Merged (start, end) intervals of one stream's kernels."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_us(x, y):
+    """Microseconds during which both merged interval lists are busy."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        total += max(0.0, min(x[i][1], y[j][1]) - max(x[i][0], y[j][0]))
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def dual_profile(cfg, params, prefill_device, label):
+    """A window of the stage-decoupled serve under ``torch.profiler``: 4
+    flows decoding on the decode lane while a fifth prefills 1024 tokens on
+    the prefill lane (two 512-token staged chunks, each followed by an
+    8-step decode segment issued from the same thread), then the handoff.
+    From the chrome trace's kernel events: the pool attention (and, for
+    recurrentgemma, the chunked RG-LRU) kernels' streams, the decode
+    kernels' streams, and the device time during which the two lanes'
+    streams were busy at once."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import H100_LANES, Priority, Request
+    from repro_torch.core.engine import RealAgentXPUEngine
+    eng = RealAgentXPUEngine(cfg, params, H100_LANES, max_len=MAX_LEN,
+                             dtype=torch.bfloat16, device="cuda",
+                             pool_slots=POOL, dual_device=True,
+                             prefill_device=prefill_device)
+    be = eng.backend
+    rng = np.random.default_rng(SEED + 6)
+
+    def req(i, n):
+        return Request(id=i, priority=Priority.PROACTIVE, prompt_len=n,
+                       max_new_tokens=64, arrival_time=0.0,
+                       tokens=rng.integers(0, cfg.vocab_size, (1, n)))
+    live = [req(i, 256) for i in range(4)]
+    for r in live:  # staged and handed off (the decode rows)
+        be.register(r)
+        be.prefill_chunk(r, 0, 256, 0.0)
+        be.prefill_done(r, 0.0)
+    be.decode_run(live, 8, 0.0)  # warm the decode shapes
+    pf = req(9, 1024)
+    be.register(pf)
+    _sync("cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for start in (0, 512):
+            be.prefill_chunk(pf, start, 512, 0.0)  # prefill lane, async
+            be.decode_run(live, 8, 0.0)  # decode lane: waits on its own
+        be.prefill_done(pf, 0.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dual.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"[dual] {label}: no kernel in the profile")
+
+    def lane(e):
+        a = e.get("args", {})
+        return (a.get("device"), a.get("stream"))
+
+    def streams_of(names):
+        return {lane(e) for e in kernels
+                if any(n in e["name"] for n in names)}
+    pool = streams_of(("pool_mma_kernel", "flash_pool_kernel"))
+    dec = streams_of(("decode_mma_kernel", "decode_kernel"))
+    scans = streams_of(("rglru_",)) if cfg.layer_pattern else set()
+    pf_lanes = pool - dec
+    if not pool or not dec or not pf_lanes:
+        raise AssertionError(
+            f"[dual] {label}: pool attention on streams {sorted(pool)}, "
+            f"decode attention on {sorted(dec)}: no pool kernel on a "
+            f"stream of its own")
+    if cfg.layer_pattern and not scans & pf_lanes:
+        raise AssertionError(f"[dual] {label}: the chunked rglru_scan ran "
+                             f"on {sorted(scans)}, not on the prefill "
+                             f"lane {sorted(pf_lanes)}")
+    busy = {}
+    for e in kernels:
+        busy.setdefault(lane(e), []).append((e["ts"], e["ts"] + e["dur"]))
+    busy = {k: _busy(v) for k, v in busy.items()}
+    pf_busy = _busy([iv for k in pf_lanes for iv in busy[k]])
+    dec_busy = _busy([iv for k in dec for iv in busy[k]])
+    both = _overlap_us(pf_busy, dec_busy)
+    out = dict(
+        wall_ms=wall * 1e3,
+        prefill_lane_busy_ms=sum(b - a for a, b in pf_busy) / 1e3,
+        decode_lane_busy_ms=sum(b - a for a, b in dec_busy) / 1e3,
+        both_busy_ms=both / 1e3,
+        streams={"pool attention": sorted(map(str, pool)),
+                 "decode attention": sorted(map(str, dec)),
+                 **({"rglru_scan": sorted(map(str, scans))} if scans
+                    else {})})
+    log(f"[dual] {label} profile: two 512-token staged chunks beside two "
+        f"8-step decode segments at B 4: wall {out['wall_ms']:.2f} ms, "
+        f"prefill lane busy {out['prefill_lane_busy_ms']:.3f} ms, decode "
+        f"lane busy {out['decode_lane_busy_ms']:.3f} ms, both at once "
+        f"{out['both_busy_ms']:.3f} ms; kernel streams (device, stream) "
+        + json.dumps(out["streams"]))
+    del eng, be, prof
+    _release()
+    return out
+
+
+def dual_phase(cfg, params, n_proactive, prefill_device, lane_name):
+    """[dual]: the serving trace of ``n_proactive`` proactive flows and two
+    reactive ones (one submitted mid-run) through
+    ``RealAgentXPUEngine(dual_device=True)`` with prefill staged on
+    ``prefill_device``'s lane, and through a single-lane twin.  The staged
+    serve must stage at least one prefill, hand off each (handoff calls =
+    staged prefills, KV bytes = the sum of each staged prompt's pow-2 cap
+    times the bytes a token adds), free every slot, and serve every token
+    within LOGIT_MARGIN of the plain path (which replays each flow's
+    chunks: a staged prefill's run over a B=1 full ring, as the plain
+    path's cache is).  Prints wall, tok/s, the mid-run reactive TTFT and
+    the decode segments' per-step wall with and without a prefill in flight
+    for both, then profiles a window of the staged path (dual_profile).
+    Both serves schedule for H100_LANES, the hardware profile of two lanes
+    of one H100: the paper's SoC profile prices its NPU lane 1.10-1.16x its
+    iGPU lane at these models' widths, past the HEG affinity test's 1.05,
+    so it would move every prefill back to the decode lane."""
+    from repro_torch.core import H100_LANES
+    from repro_torch.core.backend import _next_pow2
+    label = f"{cfg.name} dual ({lane_name})"
+    flows = make_flows(cfg, n_proactive, OUT_TOKENS,
+                       np.random.default_rng(SEED), hw=H100_LANES)
+    late_id = next(f["id"] for f in flows if f["late"])
+    runs, decisions = {}, {}
+    for dual in (True, False):
+        kw = dict(dual_device=True, prefill_device=prefill_device,
+                  on_engine=_watch_staging(decisions)) if dual \
+            else dict(dual_device=False)
+        runs[dual] = serve(cfg, params, flows, device="cuda",
+                           dtype=torch.bfloat16, hw=H100_LANES, **kw)
+        eng, metrics, wall, ttft, launches, chunks = runs[dual]
+        check_serve(cfg, eng, metrics, flows, launches,
+                    label if dual else f"{cfg.name} single-lane twin",
+                    need_abort=False)
+        _free_at_exit(eng, label)
+    eng, metrics, wall, ttft, launches, chunks = runs[True]
+    st, be = eng.stats(), eng.backend
+    staged = sorted(i for i, d in decisions.items() if d)
+    plen = {f["id"]: f["tokens"].shape[1] for f in flows}
+    want_bytes = sum(min(_next_pow2(plen[i]), MAX_LEN) for i in staged) \
+        * be._kv_token_bytes
+    if not (st["dual_device"] and st["staged_prefills"] >= 1
+            and st["staged_prefills"] == len(staged)
+            and st["handoff_device_calls"] == st["staged_prefills"]
+            and st["kv_bytes_handoff"] == want_bytes):
+        raise AssertionError(
+            f"[{label}] dual_device {st['dual_device']}, staged "
+            f"{st['staged_prefills']} (flows {staged}), handoffs "
+            f"{st['handoff_device_calls']}, KV bytes "
+            f"{st['kv_bytes_handoff']} (want {want_bytes})")
+    t0 = time.perf_counter()
+    exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                      dtype=torch.bfloat16)
+    check_s = time.perf_counter() - t0
+    gen = sum(len(eng.output_tokens(f["id"])) for f in flows)
+    out = {}
+    for dual, name in ((True, "dual"), (False, "single_lane")):
+        e, _, w, tt, ln, _ = runs[dual]
+        solo, co = _segment_walls(e.backend)
+        est = e.stats()
+        out[name] = dict(wall_s=w, tokens_per_s=gen / w,
+                         mid_run_reactive_ttft_wall_s=tt[late_id],
+                         launches=ln,
+                         co_executed_segments=est["co_executed_segments"],
+                         decode_segments=est["decode_segments"],
+                         segment_step_ms_solo=solo, segment_step_ms_co=co,
+                         host_syncs=est["host_syncs"])
+        log(f"[dual] {label}: {name}: {w:.3f} s wall ({gen / w:.2f} tok/s), "
+            f"mid-run reactive TTFT {tt[late_id]:.3f} s, "
+            f"{est['co_executed_segments']} of {est['decode_segments']} "
+            f"decode segments co-executed with a prefill, per-step segment "
+            f"wall solo {solo if solo is None else round(solo, 3)} ms / "
+            f"co-executed {co if co is None else round(co, 3)} ms, host "
+            f"syncs {est['host_syncs']}, launches {ln}")
+    out.update(flows=len(flows), lane=st["prefill_device"],
+               staged_flows=staged,
+               **{k: st[k] for k in ("staged_prefills",
+                                     "prefill_inflight_peak",
+                                     "handoff_device_calls",
+                                     "kv_bytes_handoff", "colocated_hits",
+                                     "colocated_backpressure",
+                                     "colocated_affinity")},
+               plain_exact=exact, plain_total=total, plain_worst_gap=worst)
+    log(f"[dual] {label}: prefill on {st['prefill_device']}, decode on "
+        f"{st['decode_device']}: {st['staged_prefills']} staged prefills "
+        f"(flows {staged}, {st['prefill_inflight_peak']} peak in flight), "
+        f"{st['handoff_device_calls']} handoffs ({st['kv_bytes_handoff']} KV "
+        f"bytes), co-located {st['colocated_hits']} hit / "
+        f"{st['colocated_backpressure']} backpressure / "
+        f"{st['colocated_affinity']} affinity")
+    log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
+        f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
+        f"(margin {LOGIT_MARGIN}), {check_s:.1f} s; prefill replayed as "
+        f"{chunks}")
+    del eng, be, runs
+    _release()
+    out["profile"] = dual_profile(cfg, params, prefill_device, label)
+    return out
+
+
+def baselines_phase(cfg, params):
+    """[baselines]: the reference's two measurable baselines, 4 flows (2
+    proactive, 2 reactive, one submitted mid-run) each, beside the default
+    on the same flows: ``device_resident=False`` (the pre-donation path:
+    no fused run, full-pool decode, the batch rebuilt and uploaded every
+    iteration, each program writing a fresh copy of the pool, scratch
+    prefill) must fuse no step; ``in_pool_prefill=False`` (scratch prefill
+    and one full-row bind a flow) must bind every flow and write more
+    prefill KV bytes than the default.  Every token within LOGIT_MARGIN of
+    the plain path."""
+    flows = make_flows(cfg, 2, OUT_TOKENS, np.random.default_rng(SEED + 5))
+    out = {}
+    for name, kw in (("default", {}),
+                     ("device_resident=False", dict(device_resident=False)),
+                     ("in_pool_prefill=False", dict(in_pool_prefill=False))):
+        label = f"{cfg.name} {name}"
+        eng, metrics, wall, ttft, launches, chunks = serve(
+            cfg, params, flows, device="cuda", dtype=torch.bfloat16,
+            inject_after=12, **kw)
+        st, _ = check_serve(cfg, eng, metrics, flows, launches, label,
+                            need_abort=False, fused=not kw)
+        _free_at_exit(eng, label)
+        exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                          dtype=torch.bfloat16)
+        gen = sum(len(eng.output_tokens(f["id"])) for f in flows)
+        late = next(f["id"] for f in flows if f["late"])
+        out[name] = dict(wall_s=wall, tokens_per_s=gen / wall,
+                         mid_run_reactive_ttft_wall_s=ttft[late],
+                         launches=launches, plain_exact=exact,
+                         plain_total=total, plain_worst_gap=worst,
+                         **{k: st[k] for k in (
+                             "fused_steps", "bind_device_calls",
+                             "kv_bytes_prefill", "kv_bytes_decode",
+                             "host_syncs", "decode_device_calls",
+                             "prefill_device_calls")})
+        log(f"[baselines] {label}: {wall:.3f} s wall ({gen / wall:.2f} "
+            f"tok/s), fused steps {st['fused_steps']}, binds "
+            f"{st['bind_device_calls']}, prefill KV bytes "
+            f"{st['kv_bytes_prefill']}, decode KV bytes "
+            f"{st['kv_bytes_decode']}, host syncs {st['host_syncs']}, "
+            f"launches {launches}; vs plain path {exact}/{total} exact, "
+            f"largest gap {worst:.4f}")
+        del eng
+        _release()
+    legacy, scratch = out["device_resident=False"], out["in_pool_prefill=False"]
+    if legacy["fused_steps"] != 0 or legacy["bind_device_calls"] != len(flows):
+        raise AssertionError(f"[baselines] device_resident=False: "
+                             f"{legacy['fused_steps']} fused steps, "
+                             f"{legacy['bind_device_calls']} binds")
+    if scratch["bind_device_calls"] != len(flows) or \
+            not scratch["kv_bytes_prefill"] > out["default"]["kv_bytes_prefill"]:
+        raise AssertionError(
+            f"[baselines] in_pool_prefill=False: "
+            f"{scratch['bind_device_calls']} binds for {len(flows)} flows, "
+            f"{scratch['kv_bytes_prefill']} prefill KV bytes vs the "
+            f"default's {out['default']['kv_bytes_prefill']}")
+    return out
+
+
 def serve_phase():
     """llama3.2-3b: the bf16 serve, then a shorter one on an int8 pool, the
     serving modules' phases on the same weights ([prefix], [faults],
@@ -1994,20 +2346,39 @@ def serve_phase():
     serve_stats["faults"] = faults_phase(cfg, params)
     serve_stats["frontend"] = frontend_phase(cfg, params)
     serve_stats["profile"] = profile_serving(cfg, params)
+    serve_stats["dual"] = dual_phases(cfg, params, 6)
+    serve_stats["baselines"] = baselines_phase(cfg, params)
     return serve_stats
+
+
+def dual_phases(cfg, params, n_proactive):
+    """[dual] on the stream lane (a second stream of GPU 0, asked for by
+    naming GPU 0, the decode device, as the prefill device) and, where a
+    second GPU is visible, on it."""
+    out = {"stream": dual_phase(cfg, params, n_proactive,
+                                torch.device("cuda", 0), "stream lane")}
+    if torch.cuda.device_count() >= 2:
+        out["gpu"] = dual_phase(cfg, params, n_proactive,
+                                torch.device("cuda", 1), "second GPU")
+    else:
+        log(f"[dual] {cfg.name}: one GPU visible "
+            f"({torch.cuda.device_count()}): the two-GPU lane not run")
+    return out
 
 
 def full_width_serve_phase(arch):
     """``arch`` at full width, bf16: qwen2-moe-a2.7b (every MoE layer's
     three expert products through the grouped GEMM kernel),
     recurrentgemma-9b (RG-LRU layers through ``rglru_scan``, local attention
-    at head_dim 256) or rwkv6-1.6b (WKV6 through ``rwkv6_scan``); for the
-    families of F32_TOKEN_CHECK, the f32 serve whose tokens are held to
-    the plain path."""
+    at head_dim 256; then [dual] with 4 flows) or rwkv6-1.6b (WKV6 through
+    ``rwkv6_scan``); for the families of F32_TOKEN_CHECK, the f32 serve
+    whose tokens are held to the plain path."""
     cfg, params = _init(arch)
     stats = bf16_serve(cfg, params)
     if arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):  # the expert GEMM's, scans'
         stats["profile"] = profile_serving(cfg, params)
+    if arch == RG_ARCH:  # the RG-LRU state and the window's handoff
+        stats["dual"] = dual_phases(cfg, params, 2)
     if arch in F32_TOKEN_CHECK:
         del params
         _release()
@@ -2076,6 +2447,12 @@ def main():
                f"{ARCH} prefix cold": serve_stats["prefix"]["cold_launches"],
                f"{ARCH} faults": serve_stats["faults"]["launches"],
                f"{ARCH} frontend": serve_stats["frontend"]["launches"],
+               **{f"{a} dual {lane} {run}": st["dual"][lane][run]["launches"]
+                  for a, st in ((ARCH, serve_stats), (RG_ARCH, other[RG_ARCH]))
+                  for lane in st["dual"]
+                  for run in ("dual", "single_lane")},
+               **{f"{ARCH} {k}": v["launches"]
+                  for k, v in serve_stats["baselines"].items()},
                **{f"{a} bf16": st["launches"] for a, st in other.items()},
                **{f"{a} f32": st["f32"]["launches"]
                   for a, st in other.items() if "f32" in st}}

@@ -11,6 +11,11 @@ footprint, power).  Two profiles ship:
 * TPU_V5E_LANES — the beyond-paper adaptation: "NPU" = prefill submesh,
   "iGPU" = decode submesh of a v5e pod (197 TFLOP/s bf16, 819 GB/s HBM per
   chip); the shared-DRAM contention term becomes HBM+ICI contention.
+* H100_LANES — the port's stage lanes (``launch.mesh``): "NPU" = the
+  prefill lane, "iGPU" = the decode lane, two streams of one NVIDIA H100
+  SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM, NVIDIA's data sheet) that
+  share its HBM.  The lanes are one processor, so the HEG prices them
+  alike and its affinity test never moves a staged prefill back.
 """
 from __future__ import annotations
 
@@ -60,7 +65,17 @@ TPU_V5E_LANES = HardwareProfile(
     shared_bw=819e9 * 2,
 )
 
-PROFILES = {p.name: p for p in (INTEL_CORE_ULTRA_5_125H, TPU_V5E_LANES)}
+H100_LANES = HardwareProfile(
+    name="h100_lanes",
+    npu=XPUSpec("prefill_lane", flops=989e12 * 0.6, mem_bw=3.35e12,
+                static_only=True, power=350.0),
+    igpu=XPUSpec("decode_lane", flops=989e12 * 0.6, mem_bw=3.35e12,
+                 static_only=False, power=350.0),
+    shared_bw=3.35e12,
+)
+
+PROFILES = {p.name: p for p in (INTEL_CORE_ULTRA_5_125H, TPU_V5E_LANES,
+                                H100_LANES)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,6 +9,10 @@ actually runs.  Two implementations:
                     path stays free of it.
   TorchRealBackend  real token generation on a device-resident slot-pool KV
                     cache (the port of the reference's ``JaxRealBackend``).
+  DualDeviceBackend stage-decoupled execution: prefill on a second lane (a
+                    second GPU, or a second stream of the same GPU), KV
+                    handed off into the decode pool (``DualDeviceBackend``
+                    of the reference).
 
 The seam (``ExecutionBackend``, ``SimBackend``, ``TokenCallback`` and the
 bucketing helpers) is a copy of the reference's, logic unchanged; see that
@@ -289,8 +293,19 @@ class TorchRealBackend(ExecutionBackend):
     counts the first-seen shape keys the reference would have compiled, and
     ``decode_device_calls``/``host_syncs`` count as in the reference.
 
-    Not ported yet, each refused by name: the ``device_resident=False`` /
-    ``in_pool_prefill=False`` baselines.
+    The reference's two measurable baselines:
+
+    * ``in_pool_prefill=False``: each prompt prefills into a B=1 scratch
+      cache (per-chunk host token uploads, one host sync at the last chunk)
+      that ``prefill_done`` binds into a freshly allocated row with one
+      full-row scatter (``kvcache.write_slot``): the double KV write;
+    * ``device_resident=False``: the pre-donation hot path.  No fused runs,
+      full-pool decode, the batch's tokens and mask rebuilt on the host and
+      uploaded every iteration, and scratch prefill by default.  Where the
+      reference's un-donated programs wrote fresh output buffers, each
+      program here writes a fresh copy of the pool (and token state) it
+      would otherwise update in place (``kvcache.copy_cache``), so the
+      baseline pays the copy the reference's pays.
     """
 
     name = "torch"
@@ -321,21 +336,21 @@ class TorchRealBackend(ExecutionBackend):
         if kernel_backend not in KERNEL_BACKENDS:
             raise ValueError(f"kernel_backend must be one of "
                              f"{KERNEL_BACKENDS}: {kernel_backend!r}")
-        if not device_resident or in_pool_prefill is False:
-            raise NotImplementedError(
-                "the device_resident=False / in_pool_prefill=False baselines "
-                "are not ported yet (ROADMAP.md queue 1, item 5f)")
         self._torch, self._np = torch, np
         self.cfg = cfg
         self.params = params
         self.kv_dtype = kv_dtype
         self.kernel_backend = kernel_backend
         self._kv_dtype_arg = "int8" if kv_dtype == "int8" else None
-        self.device_resident = True
-        self.in_pool_prefill = True
+        # device_resident=False: the pre-donation baseline (see above);
+        # in_pool_prefill follows it by default, as in the reference
+        self.device_resident = bool(device_resident)
+        self.in_pool_prefill = self.device_resident \
+            if in_pool_prefill is None else bool(in_pool_prefill)
         self.abortable_runs = abortable_runs
         self.decode_segment_steps = max(int(decode_segment_steps), 1)
-        self.elastic_decode = bool(elastic_decode)
+        # the legacy baseline decodes over the full pool too
+        self.elastic_decode = bool(elastic_decode) and self.device_resident
         self.max_len = max_len
         self.dtype = dtype or torch.float32
         w = params["embed"]["w"]
@@ -367,6 +382,11 @@ class TorchRealBackend(ExecutionBackend):
         self._free: List[int] = list(range(self.pool_slots))
         self._slot: Dict[int, int] = {}  # req id -> pool slot
         self._slot_pos: Dict[int, int] = {}  # pool slot -> live row position
+        # scratch-cache prefill (in_pool_prefill=False), and the staging
+        # caches of DualDeviceBackend: req id -> B=1 cache and its position
+        self._scratch: Dict[int, object] = {}
+        self._scratch_pos: Dict[int, int] = {}
+        self._first: Dict[int, int] = {}  # first token (from last chunk)
         self._last: Dict[int, int] = {}  # host mirror of last emitted token
         self._texts: Dict[int, list] = {}
         self._on_token: Dict[int, TokenCallback] = {}
@@ -384,6 +404,7 @@ class TorchRealBackend(ExecutionBackend):
                                           kv_dtype=self._kv_dtype_arg,
                                           device="meta"))
         self._kv_token_bytes = _bytes(1) - _bytes(0)
+        self._bind_row_bytes = _bytes(max_len)  # one full-row bind scatter
         pool = self._pool
         self.quant_scale_bytes = sum(
             st[n].numel() * st[n].element_size()
@@ -421,8 +442,10 @@ class TorchRealBackend(ExecutionBackend):
         # over prompt token IDs; a hit replaces the matched prefix's forward
         # passes with ONE bounded row-to-row KV copy
         from repro_torch.core.prefixcache import DEFAULT_CAPACITY_TOKENS
+        # (the copy is an in-pool row write: the baselines serve cold)
         self._prefix: Optional[PrefixCache] = None
-        if prefix_cache and prefix_reuse_supported(cfg, max_len):
+        if prefix_cache and self.in_pool_prefill and self.device_resident \
+                and prefix_reuse_supported(cfg, max_len):
             self._prefix = PrefixCache(
                 prefix_cache_tokens or DEFAULT_CAPACITY_TOKENS,
                 block=prefix_block)
@@ -516,16 +539,23 @@ class TorchRealBackend(ExecutionBackend):
             self._toks[slot] = nxt
         return nxt
 
-    def _decode(self, n_steps: int, rows: int, kvl: int, fused: bool):
+    def _decode(self, n_steps: int, rows: int, kvl: int, fused: bool,
+                batch=None):
         """``n_steps`` masked decode iterations over the leading ``rows``
         pool rows and the ``kvl`` ring prefix, in place on the pool and the
         token vector.  Returns the (n_steps, rows) token block (fused) or
-        the (rows,) next tokens, on the device."""
-        from repro_torch.models import (decode_run, decode_step, slice_rows,
-                                        write_rows_prefix)
+        the (rows,) next tokens, on the device.  ``batch``: the legacy
+        baseline's uploaded (tokens, mask), decoded on a fresh copy of the
+        pool into a fresh token vector (the un-donated program)."""
+        from repro_torch.models import (copy_cache, decode_run, decode_step,
+                                        slice_rows, write_rows_prefix)
         p = self.pool_slots
+        if batch is not None:
+            self._pool = copy_cache(self._pool)
+            self._toks = batch[0]
         sub = slice_rows(self._pool, rows) if rows < p else self._pool
-        toks, mask = self._toks[:rows], self._mask[:rows]
+        toks = self._toks[:rows]
+        mask = (self._mask if batch is None else batch[1])[:rows]
         kw = dict(kv_limit=kvl, full_alloc=self.max_len,
                   kernel_backend=self.kernel_backend)
         if fused:
@@ -540,16 +570,20 @@ class TorchRealBackend(ExecutionBackend):
         toks.copy_(t)
         return out
 
-    def _decode_call(self, n_steps: int, rows: int, kvl: int, fused: bool):
+    def _decode_call(self, n_steps: int, rows: int, kvl: int, fused: bool,
+                     batch=None):
         key = ("decode_run", self.pool_slots, n_steps, rows, kvl) if fused \
             else ("decode", self.pool_slots, rows, kvl)
         return self._call(key, self._decode, n_steps, rows, kvl, fused,
-                          stage="decode")
+                          batch, stage="decode")
 
     def _clear_slot(self, slot: int) -> None:
         """Clear a freed slot's last token and mask bit, so a stale token
         can never leak into a future bind's first masked step (fills on the
-        device: no host-to-device copy)."""
+        device: no host-to-device copy; on fresh copies in the legacy
+        baseline)."""
+        if not self.device_resident:
+            self._toks, self._mask = self._toks.clone(), self._mask.clone()
         self._toks.narrow(0, slot, 1).zero_()
         self._mask.narrow(0, slot, 1).zero_()
 
@@ -658,6 +692,64 @@ class TorchRealBackend(ExecutionBackend):
                    self._mask.copy_, self._torch.from_numpy(want),
                    stage="mask")
         self._mask_host = want
+
+    # -- scratch-cache prefill (in_pool_prefill=False) ------------------------
+    def _ensure_scratch_at(self, req: Request, seq_start: int):
+        """Scratch cache positioned at ``seq_start``: rebuilt (replaying the
+        already-prefilled prefix) after a discard-style preemption reset the
+        scheduler's chunk progress."""
+        rid = req.id
+        if rid in self._scratch and self._scratch_pos[rid] == seq_start:
+            return
+        self._scratch[rid] = self._new_pool(1)
+        self._scratch_pos[rid] = 0
+        if seq_start > 0:
+            self._run_bucketed(req, 0, seq_start)
+
+    def _scratch_extend(self, cache, chunk):
+        """One pow-2 bucket against a B=1 cache (in place; on a fresh copy
+        in the legacy baseline).  Returns (greedy next token as a device
+        scalar, the cache)."""
+        from repro_torch.models import copy_cache, extend
+        if not self.device_resident:
+            cache = copy_cache(cache)
+        logits, cache = extend(self.cfg, self.params, cache, chunk,
+                               kernel_backend=self.kernel_backend)
+        return logits.argmax(-1).to(self._torch.int32)[0], cache
+
+    def _run_bucketed(self, req: Request, start: int, n: int):
+        if n <= 0:  # zero-length chunk: nothing ran, ``nxt`` never exists
+            return
+        rid = req.id
+        np, pos = self._np, start
+        for size in _pow2_buckets(n):
+            # the baseline's per-chunk host upload
+            chunk = self._torch.from_numpy(np.asarray(
+                req.tokens[:, pos:pos + size], np.int32)).to(self.device)
+            nxt, self._scratch[rid] = self._call(
+                ("extend", size), self._scratch_extend, self._scratch[rid],
+                chunk, rid=rid, stage="prefill")
+            self.prefill_device_calls += 1
+            pos += size
+        self._scratch_pos[rid] = pos
+        self.kv_bytes_prefill += n * self._kv_token_bytes
+        self.prefill_forward_tokens += n
+        if pos >= req.prompt_len:  # last chunk -> first output token
+            self._first[rid] = int(nxt)
+            self._nxt_dev[rid] = nxt  # for the bind, device to device
+            self.host_syncs += 1
+            self.prefill_host_syncs += 1
+
+    def _bind(self, one, slot: int, first_dev) -> None:
+        """The scratch baseline's bind: ``one`` scattered whole into pool row
+        ``slot`` and the first token into the token vector, device to
+        device (fresh copies of both in the legacy baseline)."""
+        from repro_torch.models import copy_cache, write_slot
+        if not self.device_resident:
+            self._pool = copy_cache(self._pool)
+            self._toks = self._toks.clone()
+        write_slot(self._pool, one, slot)
+        self._toks.narrow(0, slot, 1).copy_(first_dev.reshape(1))
 
     # -- in-pool prefill (DESIGN.md §7) ---------------------------------------
     def _upload_prompt(self, req: Request):
@@ -790,7 +882,7 @@ class TorchRealBackend(ExecutionBackend):
                  on_token: Optional[TokenCallback] = None) -> None:
         if on_token is not None:
             self._on_token[req.id] = on_token
-        if req.tokens is not None:
+        if self.in_pool_prefill and req.tokens is not None:
             self._upload_prompt(req)
 
     # -- per-flow fault isolation (DESIGN.md §12) -----------------------------
@@ -832,8 +924,12 @@ class TorchRealBackend(ExecutionBackend):
             return
         self._track_prefill(req.id)
         try:
-            self._ensure_row_at(req, seq_start)
-            self._run_bucketed_in_pool(req, seq_start, tokens)
+            if self.in_pool_prefill:
+                self._ensure_row_at(req, seq_start)
+                self._run_bucketed_in_pool(req, seq_start, tokens)
+            else:
+                self._ensure_scratch_at(req, seq_start)
+                self._run_bucketed(req, seq_start, tokens)
         except FaultError as e:
             self._record_flow_fault(req, e, "prefill")
 
@@ -841,20 +937,41 @@ class TorchRealBackend(ExecutionBackend):
         if req.id in self._quarantined:
             return
         self._untrack_prefill(req.id)
+        try:
+            self._prefill_done(req, now)
+        except FaultError as e:
+            self._record_flow_fault(req, e, "prefill")
+
+    def _prefill_done(self, req: Request, now: float) -> None:
         rid = req.id
-        if req.tokens is None or rid not in self._slot:
-            return
-        nxt = self._nxt_dev.pop(rid, None)
-        if nxt is None:
-            # prefill made entirely of zero-length chunks: no program ran
-            # and there is no token to decode on; return the slot
-            heapq.heappush(self._free, self._slot.pop(rid))
+        if self.in_pool_prefill:
+            if req.tokens is None or rid not in self._slot:
+                return
+            nxt = self._nxt_dev.pop(rid, None)
+            if nxt is None:
+                # prefill made entirely of zero-length chunks: no program
+                # ran and there is no token to decode on; return the slot
+                heapq.heappush(self._free, self._slot.pop(rid))
+                self._row_pos.pop(rid, None)
+                return
+            first = int(nxt)  # the one host sync of this prefill
+            self.host_syncs += 1
+            self.prefill_host_syncs += 1
             self._row_pos.pop(rid, None)
-            return
-        first = int(nxt)  # the one host sync of this prefill
-        self.host_syncs += 1
-        self.prefill_host_syncs += 1
-        self._row_pos.pop(rid, None)
+        else:
+            # the _first guard covers a prefill made entirely of zero-length
+            # chunks: no forward ran, so there is no token to bind a slot on
+            if req.tokens is None or rid not in self._scratch \
+                    or rid not in self._first:
+                return
+            slot = self._alloc_slot(rid)
+            first = self._first.pop(rid)
+            self._call(("bind", self.pool_slots), self._bind,
+                       self._scratch.pop(rid), slot, self._nxt_dev.pop(rid),
+                       rid=rid, stage="prefill")
+            self._scratch_pos.pop(rid, None)
+            self.bind_device_calls += 1
+            self.kv_bytes_prefill += self._bind_row_bytes
         # host-known row progress: decode dispatches derive their pow-2
         # kv_limit from the max live position of the batch (§9)
         self._slot_pos[self._slot[rid]] = req.prompt_len
@@ -882,7 +999,7 @@ class TorchRealBackend(ExecutionBackend):
         the unlaunched remainder (``request_preempt``)."""
         live = [r for r in reqs if r.id in self._slot
                 and r.id not in self._quarantined]
-        if not live or n_steps <= 1:
+        if not live or n_steps <= 1 or not self.device_resident:
             return
         slots = [self._slot[r.id] for r in live]
         self._sync_mask(slots)
@@ -973,9 +1090,22 @@ class TorchRealBackend(ExecutionBackend):
             self._replay_row(live)
             return
         slots = [self._slot[r.id] for r in live]
-        self._sync_mask(slots)
+        batch = None
+        if self.device_resident:
+            self._sync_mask(slots)
+        else:
+            # legacy (pre-donation) hot path: rebuild the batch state on the
+            # host and upload it every iteration
+            np, torch = self._np, self._torch
+            mask_h = np.zeros((self.pool_slots,), bool)
+            toks_h = np.zeros((self.pool_slots,), np.int32)
+            for r in live:
+                mask_h[self._slot[r.id]] = True
+                toks_h[self._slot[r.id]] = self._last[r.id]
+            batch = (torch.from_numpy(toks_h).to(self.device),
+                     torch.from_numpy(mask_h).to(self.device))
         rows, kvl = self._elastic_extent(slots, 1)
-        nxt = self._decode_call(1, rows, kvl, fused=False)
+        nxt = self._decode_call(1, rows, kvl, fused=False, batch=batch)
         self.decode_device_calls += 1
         self._account_decode(slots, 1, rows, kvl)
         nxt = nxt.cpu().numpy()  # the one host sync of this iteration
@@ -1024,6 +1154,9 @@ class TorchRealBackend(ExecutionBackend):
             heapq.heappush(self._free, slot)
         self._untrack_prefill(rid)
         self._last.pop(rid, None)
+        self._scratch.pop(rid, None)
+        self._scratch_pos.pop(rid, None)
+        self._first.pop(rid, None)
         self._on_token.pop(rid, None)
         self._tok_dev.pop(rid, None)
         self._row_pos.pop(rid, None)
@@ -1265,3 +1398,375 @@ class TorchRealBackend(ExecutionBackend):
             "co_execution_prefill_slowdown_model":
                 1.0 / max(model_rates[0], 1e-9),
         }
+
+
+class DualDeviceBackend(TorchRealBackend):
+    """Stage-decoupled execution (DESIGN.md §14): prefill on a second lane
+    while decode, and the KV pool it owns, stay on the backend's device and
+    its current stream.  The port of the reference's ``DualDeviceBackend``.
+
+    The prefill lane (``launch.mesh``): a second GPU when one is visible,
+    as in the reference; on one GPU the same GPU with a ``torch.cuda.Stream``
+    of its own, two lanes sharing HBM the way the paper's NPU and iGPU share
+    DDR; an explicit ``prefill_device`` equal to the decode device is such a
+    lane too, and on the CPU it runs the staged code in order.  Without a
+    lane (``prefill_device=None`` and no GPU) every flow co-locates, as the
+    reference does on one device.
+
+    A staged prefill forwards its prompt chunks through a B=1 staging cache
+    on the prefill lane, the next-token scalar kept there between chunks:
+    no host sync in the prompt phase.  At ``prefill_done`` the cache's ring
+    is truncated to the prompt's pow-2 ``cap`` (a view), moved to the
+    decode device when that is another GPU, and installed into a freshly
+    allocated pool row by ``kvcache.handoff_row`` on the decode stream,
+    which first waits on an event recorded after the last staged launch.
+    The one host sync of the prefill fetches the first token on the prefill
+    lane, so it waits on that lane's chain only.  Staging caches are
+    recycled (``reset_row(cache, 0)``, bounded by ``prefill_inflight_max``);
+    a recycled cache is reset only after an event recorded behind its
+    install on the decode stream, and a cache read on the decode stream is
+    marked for it in the caching allocator (``record_stream``).
+
+    Elastic binding (HEG), decided once per request: a prefill co-locates
+    on the decode lane (the inherited in-pool path, identical tokens) when
+    there is no second lane, when it has a prefix-cache hit (the matched KV
+    lives in the decode pool), at ``prefill_inflight_max`` staged prefills
+    (backpressure), or when the HEG prices the prefill lane more than 5%
+    above the decode lane for the tail.  The scheduler drives the same hook
+    sequence either way, so sim and real traces stay equal.
+    """
+
+    name = "torch-dual"
+
+    def __init__(self, cfg, params, *, prefill_device=None,
+                 prefill_inflight_max: int = 8, heg=None, **kw):
+        super().__init__(cfg, params, **kw)
+        self.heg = heg
+        self.prefill_inflight_max = max(int(prefill_inflight_max), 1)
+        self.decode_device = self.device
+        lane = self._prefill_lane(prefill_device)
+        # staging leans on in-pool prefill and the device-resident decode
+        # tail: the baselines co-locate wholesale, as in the reference
+        self.dual_device = lane is not None and self.in_pool_prefill \
+            and self.device_resident
+        self.prefill_device = lane.device if self.dual_device \
+            else self.device
+        self._pf_stream = lane.stream if self.dual_device else None
+        self._params_pf = None
+        if self.dual_device:
+            from repro_torch.models import module_from_state_dict
+            self._params_pf = params if self.prefill_device == self.device \
+                else module_from_state_dict(params.state_dict(),
+                                            device=self.prefill_device)
+        if self._pf_stream is not None:
+            # the weights (and their copy) were written on the current
+            # streams: the prefill lane starts after them
+            torch = self._torch
+            self._pf_stream.wait_stream(torch.cuda.current_stream(
+                self.device))
+            self._pf_stream.wait_stream(torch.cuda.current_stream(
+                self.prefill_device))
+        self._staged: set = set()  # rids prefilling on the prefill lane
+        self._stage_decision: Dict[int, bool] = {}  # sticky per request
+        self._tok_dev_pf: Dict[int, object] = {}  # prompt uploads, pf lane
+        # recycled staging caches: [cache, event after its install] (the
+        # event is None until the install is queued)
+        self._staging_free: List[list] = []
+        self.staged_prefills = 0
+        self.prefill_inflight_peak = 0
+        self.handoff_device_calls = 0  # pool installs of staged rows
+        self.kv_bytes_handoff = 0  # ring bytes moved across the handoff
+        self.colocated_hits = 0  # fallbacks: prefix hit on the decode pool
+        self.colocated_backpressure = 0  # fallbacks: staging queue full
+        self.colocated_affinity = 0  # fallbacks: HEG priced the lane out
+
+    def _prefill_lane(self, prefill_device):
+        """The prefill ``Lane``, or None (co-located execution)."""
+        from repro_torch.launch.mesh import (Lane, MeshDeviceError,
+                                             dual_stage_devices)
+        torch = self._torch
+        if prefill_device is None:
+            try:
+                return dual_stage_devices(self.device)[1]
+            except MeshDeviceError:
+                return None
+        dev = torch.device(prefill_device)
+        if dev.type != self.device.type:
+            raise ValueError(f"prefill_device {dev} is not a lane of the "
+                             f"decode device's kind ({self.device})")
+        if dev.type != "cuda":
+            return Lane(dev, None)  # the CPU lane: the staged code in order
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return Lane(dev, torch.cuda.Stream(dev))
+
+    def _on_lane(self):
+        """Context in which work is issued on the prefill lane."""
+        import contextlib
+        if self._pf_stream is None:
+            return contextlib.nullcontext()
+        return self._torch.cuda.stream(self._pf_stream)
+
+    def _lane_name(self) -> str:
+        if not self.dual_device or self.prefill_device != self.device:
+            return str(self.prefill_device)
+        if self._pf_stream is None:
+            return f"{self.prefill_device} (in-order lane)"
+        return f"{self.prefill_device} (stream {self._pf_stream.stream_id})"
+
+    # -- elastic binding (HEG affinity / backpressure / hit fallbacks) --------
+    def _stage_for(self, req: Request, seq_start: int) -> bool:
+        """Decide (once, stickily) whether this request prefills on the
+        prefill lane or co-locates on the decode lane."""
+        rid = req.id
+        dec = self._stage_decision.get(rid)
+        if dec is not None:
+            return dec
+        stage = self.dual_device
+        if stage and self._hit.get(rid, 0) > 0:
+            stage = False
+            self.colocated_hits += 1
+        if stage and len(self._staged) >= self.prefill_inflight_max:
+            stage = False
+            self.colocated_backpressure += 1
+        if stage and self.heg is not None:
+            # co-locate only when the HEG prices the prefill lane more than
+            # 5% worse for this tail (staging is the default)
+            tail = max(req.prompt_len - seq_start, 1)
+            if self.heg.prefill_time_estimate(tail, "npu") > \
+                    1.05 * self.heg.prefill_time_estimate(tail, "igpu"):
+                stage = False
+                self.colocated_affinity += 1
+        self._stage_decision[rid] = stage
+        if stage:
+            self._staged.add(rid)
+            self.staged_prefills += 1
+            self.prefill_inflight_peak = max(self.prefill_inflight_peak,
+                                             len(self._staged))
+        return stage
+
+    # -- staged prefill (prefill lane) ----------------------------------------
+    def _upload_prompt_pf(self, req: Request):
+        """Pow-2-padded prompt tokens on the prefill lane (the decode
+        lane's twin is ``_tok_dev``); pinned and asynchronous on a GPU, so
+        the staged chunks issue no host sync."""
+        rid = req.id
+        buf = self._tok_dev_pf.get(rid)
+        if buf is None:
+            np = self._np
+            toks = np.asarray(req.tokens, np.int32).reshape(1, -1)
+            pad = np.zeros((1, _next_pow2(max(toks.shape[1], 1))), np.int32)
+            pad[:, :toks.shape[1]] = toks
+            host = self._torch.from_numpy(pad)
+            with self._on_lane():
+                if self.prefill_device.type == "cuda":
+                    buf = host.pin_memory().to(self.prefill_device,
+                                               non_blocking=True)
+                else:
+                    buf = host.to(self.prefill_device)
+            self._tok_dev_pf[rid] = buf
+        return buf
+
+    def _staged_reset(self, item):
+        """Recycle a used staging cache to the fresh-bind state, once the
+        decode stream has read its last entry."""
+        from repro_torch.models import reset_row
+        cache, installed = item
+        with self._on_lane():
+            if installed is not None:
+                self._pf_stream.wait_event(installed)
+            return reset_row(cache, 0)
+
+    def _staged_extend(self, cache, buf, start: int, c: int):
+        """One pow-2 bucket against the staging cache on the prefill lane,
+        its tokens sliced from the resident prompt; the next token stays
+        there as a device scalar."""
+        from repro_torch.models import extend
+        with self._on_lane():
+            logits, cache = extend(self.cfg, self._params_pf, cache,
+                                   buf[:, start:start + c],
+                                   kernel_backend=self.kernel_backend)
+            return logits.argmax(-1).to(self._torch.int32)[0], cache
+
+    def _ensure_staged_at(self, req: Request, seq_start: int):
+        """Staging cache positioned at ``seq_start``: rebuilt (replaying the
+        already-prefilled prefix) after a discard-style preemption reset the
+        scheduler's chunk progress.  Rides in the ``_scratch`` bookkeeping,
+        so every teardown path already covers it."""
+        from repro_torch.models import init_cache
+        rid = req.id
+        if rid in self._scratch and self._scratch_pos[rid] == seq_start:
+            return
+        if self._staging_free:
+            cache = self._call(("staged_reset",), self._staged_reset,
+                               self._staging_free.pop(), rid=rid,
+                               stage="prefill")
+            self.prefill_device_calls += 1
+        else:
+            with self._on_lane():
+                cache = init_cache(self.cfg, self._params_pf, 1,
+                                   self.max_len, self.dtype,
+                                   kv_dtype=self._kv_dtype_arg,
+                                   device=self.prefill_device)
+        self._scratch[rid] = cache
+        self._scratch_pos[rid] = 0
+        self._nxt_dev.pop(rid, None)
+        if seq_start > 0:
+            self._run_staged(req, 0, seq_start)
+
+    def _run_staged(self, req: Request, start: int, n: int):
+        if n <= 0:  # zero-length chunk: nothing ran, ``nxt`` never exists
+            return
+        rid = req.id
+        buf = self._upload_prompt_pf(req)
+        pos = start
+        for size in _pow2_buckets(n):
+            nxt, self._scratch[rid] = self._call(
+                ("staged_extend", size, buf.shape[1]), self._staged_extend,
+                self._scratch[rid], buf, pos, size, rid=rid, stage="prefill")
+            self.prefill_device_calls += 1
+            pos += size
+        self._scratch_pos[rid] = pos
+        self.kv_bytes_prefill += n * self._kv_token_bytes
+        self.prefill_forward_tokens += n
+        if pos >= req.prompt_len:
+            # the first token stays on the prefill lane: the one host sync
+            # per prefill happens at the handoff, never per chunk
+            self._nxt_dev[rid] = nxt
+
+    def prefill_chunk(self, req: Request, seq_start: int, tokens: int,
+                      now: float) -> None:
+        if req.tokens is None or req.id in self._quarantined:
+            return
+        if not self._stage_for(req, seq_start):
+            super().prefill_chunk(req, seq_start, tokens, now)
+            return
+        self._track_prefill(req.id)
+        try:
+            self._ensure_staged_at(req, seq_start)
+            self._run_staged(req, seq_start, tokens)
+        except FaultError as e:
+            self._record_flow_fault(req, e, "prefill")
+
+    # -- KV handoff (prefill lane -> decode pool) -----------------------------
+    def _to_decode_lane(self, entry, nxt):
+        """The truncated entry and the first token as the decode lane reads
+        them, and the event the decode stream waits on before it does (None
+        on the CPU lane).  On another GPU both are copied across, queued
+        behind the prefill lane's chain."""
+        torch = self._torch
+        if self._pf_stream is None:
+            return entry, nxt, None
+        from repro_torch.models.kvcache import _map_states
+        with self._on_lane():
+            if self.prefill_device != self.device:
+                dev = self.device
+                moved = _map_states(
+                    lambda n, a, x: x.to(dev, non_blocking=True), entry)
+                moved["pos"] = entry["pos"].to(dev, non_blocking=True)
+                entry, nxt = moved, nxt.to(dev, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._pf_stream)
+        return entry, nxt, ready
+
+    def _handoff(self, entry, slot: int, cap: int, first_dev, ready,
+                 recycled) -> None:
+        """Install ``entry`` into pool row ``slot`` and commit the first
+        token to the token vector, on the decode stream after ``ready``."""
+        from repro_torch.models import handoff_row
+        from repro_torch.models.kvcache import _leaves
+        torch = self._torch
+        if ready is not None:
+            dec = torch.cuda.current_stream(self.device)
+            dec.wait_event(ready)
+            if self.prefill_device == self.device:
+                # prefill-lane memory read here: the caching allocator must
+                # not hand it back out before the decode stream is done
+                for t in (*_leaves(entry), first_dev):
+                    t.record_stream(dec)
+        handoff_row(self._pool, entry, slot, cap, self.max_len)
+        self._toks.narrow(0, slot, 1).copy_(first_dev.reshape(1))
+        if ready is not None and recycled is not None:
+            recycled[1] = torch.cuda.Event()
+            recycled[1].record(dec)
+
+    def _prefill_done(self, req: Request, now: float) -> None:
+        from repro_torch.models import truncate_rings
+        rid = req.id
+        if rid not in self._staged:
+            self._stage_decision.pop(rid, None)
+            return super()._prefill_done(req, now)
+        nxt = self._nxt_dev.pop(rid, None)
+        cache = self._scratch.pop(rid, None)
+        self._scratch_pos.pop(rid, None)
+        self._staged.discard(rid)
+        self._stage_decision.pop(rid, None)
+        if req.tokens is None or nxt is None or cache is None:
+            # staged prefill made entirely of zero-length chunks: no program
+            # ran, no pool slot was ever bound: nothing to hand off
+            return
+        # bound the handoff to the prompt's pow-2 ring prefix (prefill
+        # positions never wrap: prompt_len <= max_len by engine contract)
+        cap = min(_next_pow2(max(req.prompt_len, 1)), self.max_len)
+        entry = cache
+        if cap < self.max_len:
+            entry = self._call(("staged_trunc", cap), truncate_rings, cache,
+                               cap, self.max_len, rid=rid, stage="prefill")
+        entry, first_dev, ready = self._to_decode_lane(entry, nxt)
+        # recycle the staging cache for the next staged prefill; its reset
+        # waits on the event the install below records
+        recycled = None
+        if len(self._staging_free) < self.prefill_inflight_max:
+            recycled = [cache, None]
+            self._staging_free.append(recycled)
+        if rid not in self._slot:
+            self._alloc_slot(rid)
+        slot = self._slot[rid]
+        self._call(("handoff", self.pool_slots, cap), self._handoff, entry,
+                   slot, cap, first_dev, ready, recycled, rid=rid,
+                   stage="prefill")
+        self.handoff_device_calls += 1
+        self.kv_bytes_handoff += cap * self._kv_token_bytes
+        # the ONE host sync of this prefill, on the prefill lane: it waits
+        # on that lane's chain only, never on queued decode segments
+        with self._on_lane():
+            first = int(nxt)
+        self.host_syncs += 1
+        self.prefill_host_syncs += 1
+        self._slot_pos[slot] = req.prompt_len
+        # donor indexing mirrors the in-pool branch (same wrap gate), so
+        # staged prompts land on the decode pool as prefix sources too
+        if self._prefix is not None \
+                and req.prompt_len + req.max_new_tokens <= self.max_len:
+            path, evicted = self._prefix.insert(_prompt_key(req))
+            for node in path:
+                self._set_source(node, ("slot", slot))
+            for node in evicted:
+                self._set_source(node, None)
+        self._last[rid] = first
+        self._texts[rid] = [first]
+        self._emit(req, first)
+
+    def _drop_flow_state(self, rid: int) -> None:
+        # mid-prefill abort / quarantine / release of a staged flow: the
+        # staging cache rides in _scratch (cleared by super), the rest here
+        self._staged.discard(rid)
+        self._stage_decision.pop(rid, None)
+        self._tok_dev_pf.pop(rid, None)
+        super()._drop_flow_state(rid)
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out.update({
+            "dual_device": self.dual_device,
+            "prefill_device": self._lane_name(),
+            "decode_device": str(self.decode_device),
+            "staged_prefills": self.staged_prefills,
+            "prefill_inflight_peak": self.prefill_inflight_peak,
+            "handoff_device_calls": self.handoff_device_calls,
+            "kv_bytes_handoff": self.kv_bytes_handoff,
+            "colocated_hits": self.colocated_hits,
+            "colocated_backpressure": self.colocated_backpressure,
+            "colocated_affinity": self.colocated_affinity,
+        })
+        return out

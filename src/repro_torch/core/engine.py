@@ -10,7 +10,7 @@ stream out under the paper's scheduling order.
 ``AgentXPUEngine``, ``make_scheduler`` and ``stream_printer`` are copies of
 the reference's; ``RealAgentXPUEngine`` builds the PyTorch backend.  The
 coordinator interleaves kernels in simulated-clock order while the model
-math runs for real on one device.
+math runs for real on one device, or on two lanes (stage-decoupled).
 """
 from __future__ import annotations
 
@@ -119,11 +119,20 @@ class RealAgentXPUEngine(AgentXPUEngine):
 
     ``prefix_cache`` (shared-prefix KV reuse, DESIGN.md §10) defaults to
     True, as in the reference; ``faults=`` threads a ``FaultInjector``
-    through the backend's fault seam (DESIGN.md §12).  Not ported yet, each
-    raising ``NotImplementedError`` naming its ROADMAP item: the legacy
-    ``device_resident=False`` / ``in_pool_prefill=False`` baselines (item
-    5f) and stage-decoupled ``dual_device=True`` (item 9); ``None`` means
-    one device."""
+    through the backend's fault seam (DESIGN.md §12).
+    ``device_resident=False`` / ``in_pool_prefill=False`` are the
+    reference's pre-donation and scratch-cache baselines.
+
+    ``dual_device`` (DESIGN.md §14) selects stage-decoupled execution
+    (``DualDeviceBackend``): prefill on a second lane, decode and the KV
+    pool on ``device``, the KV handed off at ``prefill_done``.  ``None``
+    (default) turns it on when two GPUs are visible; ``True`` takes a second
+    GPU if there is one, else a second stream of the one GPU, and on the
+    CPU co-locates every prefill, as the reference does on one device;
+    ``False`` pins the single-lane backend.  An explicit ``prefill_device``
+    equal to ``device`` is a lane of its own: a stream of that GPU, and on
+    the CPU the staged code run in order (how the CPU tests run every
+    staged line)."""
 
     def __init__(self, cfg: ModelConfig, params,
                  hw: HardwareProfile = INTEL_CORE_ULTRA_5_125H,
@@ -144,14 +153,13 @@ class RealAgentXPUEngine(AgentXPUEngine):
                  strict_invariants: Optional[bool] = None,
                  faults=None,
                  dual_device: Optional[bool] = None,
+                 prefill_device=None,
+                 prefill_inflight_max: int = 8,
                  contention_calibration=None,
                  **sched_kw):
         import torch
-        from repro_torch.core.backend import TorchRealBackend
-        if dual_device:
-            raise NotImplementedError(
-                "stage-decoupled dual-device execution is not ported yet "
-                "(ROADMAP.md queue 1, item 9)")
+        from repro_torch.core.backend import (DualDeviceBackend,
+                                              TorchRealBackend)
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -171,7 +179,16 @@ class RealAgentXPUEngine(AgentXPUEngine):
                          pool_slots_max=pool_slots_max,
                          admission_queue_len=admission_queue_len,
                          **sched_kw)
-        self.backend = TorchRealBackend(
+        if dual_device is None:
+            # auto: stage-decoupled execution iff a second GPU is visible
+            dual_device = torch.cuda.device_count() >= 2
+        backend_cls = DualDeviceBackend if dual_device else TorchRealBackend
+        backend_kw = {}
+        if dual_device:
+            backend_kw = dict(prefill_device=prefill_device,
+                              prefill_inflight_max=prefill_inflight_max,
+                              heg=self.heg)
+        self.backend = backend_cls(
             cfg, params, pool_slots=pool_slots or self.heg.B_max,
             max_len=max_len, dtype=dtype, device=device,
             device_resident=device_resident,
@@ -184,7 +201,8 @@ class RealAgentXPUEngine(AgentXPUEngine):
             prefix_cache_tokens=prefix_cache_tokens,
             kv_dtype=kv_dtype, kernel_backend=kernel_backend,
             pool_slots_max=pool_slots_max,
-            isolate_flow_faults=isolate_flow_faults, faults=faults)
+            isolate_flow_faults=isolate_flow_faults, faults=faults,
+            **backend_kw)
         # default SLO for human-facing flows: reactive requests submitted
         # without their own deadline inherit this (seconds from arrival)
         self.deadline_s = deadline_s

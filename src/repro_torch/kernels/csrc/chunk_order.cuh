@@ -14,7 +14,8 @@
 // waits until the flags of every earlier chunk hold the epoch (wait_for).
 // Epochs grow by one a launch, so no flag needs clearing between launches.
 // The wrapper keeps the counter, the tiles taken and the flags
-// (kernels/ops.py _ChunkSync), one set per kernel and device.
+// (kernels/ops.py _ChunkSync), one set per kernel, device and stream: two
+// launches in flight on two streams never share a counter or a flag.
 #pragma once
 
 #include <cuda_runtime.h>

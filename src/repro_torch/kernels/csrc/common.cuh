@@ -7,7 +7,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace rt {
+
+// A launch-time setting that binds to the calling thread's current device
+// (cudaFuncSetAttribute): run once for each device a kernel is launched on,
+// at its first launch there, and its result kept.  A launch path holds one
+// as a function-local static.  Once per process would leave a second GPU
+// (a stage-decoupled prefill lane) without the attribute, and a launch past
+// 48 KB of shared memory there refused.
+class PerDevice {
+ public:
+  template <typename F>
+  cudaError_t get(F set) {
+    int dev = 0;
+    const cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    std::call_once(once_[dev], [&] { result_[dev] = set(); });
+    return result_[dev];
+  }
+
+ private:
+  static constexpr int kMaxDevices = 64;
+  std::once_flag once_[kMaxDevices];
+  cudaError_t result_[kMaxDevices] = {};
+};
 
 // Masked scores are -1e30, not -inf, as in the reference kernels: a row
 // with no valid slot then averages V (finite) instead of producing NaN.

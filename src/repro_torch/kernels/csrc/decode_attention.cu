@@ -428,8 +428,9 @@ cudaError_t launch_f32(int hd, dim3 grid, cudaStream_t st,
 template <typename KV, int HD>
 cudaError_t launch_mma(dim3 grid, cudaStream_t st, const DecodeArgs& a) {
   constexpr int kSmem = DecLayout<KV, HD>::kBytes;
-  static const cudaError_t attr =
-      am::allow_smem(decode_mma_kernel<KV, HD>, kSmem);
+  static rt::PerDevice smem_set;
+  const cudaError_t attr = smem_set.get(
+      [&] { return am::allow_smem(decode_mma_kernel<KV, HD>, kSmem); });
   if (attr != cudaSuccess) return attr;
   decode_mma_kernel<KV, HD><<<grid, kNT, kSmem, st>>>(a);
   return cudaGetLastError();

@@ -238,8 +238,9 @@ __global__ void __launch_bounds__(Cfg<HD>::NT) flash_fwd_kernel(FwdArgs a) {
 template <typename T, int HD>
 cudaError_t launch(int B, cudaStream_t st, const FwdArgs& a) {
   using C = Cfg<HD>;
-  static const cudaError_t attr =
-      fa::allow_smem(flash_fwd_kernel<T, HD>, C::kSmemBytes);
+  static rt::PerDevice smem_set;
+  const cudaError_t attr = smem_set.get(
+      [&] { return fa::allow_smem(flash_fwd_kernel<T, HD>, C::kSmemBytes); });
   if (attr != cudaSuccess) return attr;
   // the query tiles on the slowest grid axis: issued in order
   const dim3 grid(a.Hq, B, (a.Sq + C::RW - 1) / C::RW);

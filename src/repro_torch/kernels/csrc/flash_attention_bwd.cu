@@ -363,10 +363,11 @@ template <typename T, int HD>
 cudaError_t launch(int B, int Hkv, cudaStream_t st, const BwdArgs& a) {
   using C = Cfg<HD>;
   constexpr int kSmem = C::kSmemBytes;
-  static const cudaError_t attr1 =
-      fa::allow_smem(flash_dkdv_kernel<T, HD>, kSmem);
-  static const cudaError_t attr2 =
-      fa::allow_smem(flash_dq_kernel<T, HD>, kSmem);
+  static rt::PerDevice smem_set1, smem_set2;
+  const cudaError_t attr1 = smem_set1.get(
+      [&] { return fa::allow_smem(flash_dkdv_kernel<T, HD>, kSmem); });
+  const cudaError_t attr2 = smem_set2.get(
+      [&] { return fa::allow_smem(flash_dq_kernel<T, HD>, kSmem); });
   if (attr1 != cudaSuccess) return attr1;
   if (attr2 != cudaSuccess) return attr2;
   // the key (query) tiles on the slowest grid axis: issued in order

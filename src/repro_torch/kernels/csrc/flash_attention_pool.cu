@@ -195,13 +195,11 @@ __global__ void __launch_bounds__(HD) flash_pool_kernel(PoolArgs a) {
 template <typename T, typename KV, int HD>
 cudaError_t launch(dim3 grid, cudaStream_t st, const PoolArgs& a) {
   constexpr int kSmem = sizeof(PoolSmem<HD>);
-  // raising the dynamic limit is needed once per kernel, past 48 KB only
-  static const cudaError_t attr =
-      kSmem <= 48 * 1024
-          ? cudaSuccess
-          : cudaFuncSetAttribute(flash_pool_kernel<T, KV, HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmem);
+  // raising the dynamic limit is needed once per kernel and device, past
+  // 48 KB only
+  static rt::PerDevice smem_set;
+  const cudaError_t attr = smem_set.get(
+      [&] { return am::allow_smem(flash_pool_kernel<T, KV, HD>, kSmem); });
   if (attr != cudaSuccess) return attr;
   flash_pool_kernel<T, KV, HD><<<grid, HD, kSmem, st>>>(a);
   return cudaGetLastError();
@@ -378,8 +376,9 @@ cudaError_t launch_mma(int B, int Hkv, cudaStream_t st, const PoolArgs& a) {
     return cudaErrorInvalidValue;
   const dim3 grid((a.Sq * a.G + L::kRows - 1) / L::kRows * a.n_split, Hkv,
                   B);
-  static const cudaError_t attr =
-      am::allow_smem(pool_mma_kernel<KV, HD>, kSmem);
+  static rt::PerDevice smem_set;
+  const cudaError_t attr = smem_set.get(
+      [&] { return am::allow_smem(pool_mma_kernel<KV, HD>, kSmem); });
   if (attr != cudaSuccess) return attr;
   pool_mma_kernel<KV, HD><<<grid, kNT, kSmem, st>>>(a);
   return cudaGetLastError();

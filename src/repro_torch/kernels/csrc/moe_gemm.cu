@@ -334,7 +334,8 @@ template <typename T, int R, int G, int CW>
 cudaError_t launch(const GemmArgs& a, int E, cudaStream_t st) {
   constexpr int bytes = ring_bytes<T, R, G, CW>();
   // the ring's size, and shared memory for as many blocks an SM as fit
-  static const cudaError_t attr = [] {
+  static rt::PerDevice smem_set;
+  const cudaError_t attr = smem_set.get([&] {
     const cudaError_t e = cudaFuncSetAttribute(
         moe_ring_kernel<T, R, G, CW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -343,7 +344,7 @@ cudaError_t launch(const GemmArgs& a, int E, cudaStream_t st) {
                                   moe_ring_kernel<T, R, G, CW>,
                                   cudaFuncAttributePreferredSharedMemoryCarveout,
                                   cudaSharedmemCarveoutMaxShared);
-  }();
+  });
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.f + kBF - 1) / kBF, (a.C + G * R - 1) / (G * R), E);
   moe_ring_kernel<T, R, G, CW>

@@ -444,8 +444,11 @@ cudaError_t launch(int B, cudaStream_t st, const WkvArgs& a) {
     return cudaGetLastError();
   }
   constexpr int kMax = smem_floats<D>(kT) * sizeof(float);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      wkv6_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
+  static rt::PerDevice smem_set;
+  const cudaError_t attr = smem_set.get([&] {
+    return cudaFuncSetAttribute(
+        wkv6_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMax);
+  });
   if (attr != cudaSuccess) return attr;
   wkv6_kernel<T, D><<<a.nc * a.H * B, 8 * D,
                       smem_floats<D>(a.R) * sizeof(float), st>>>(a);

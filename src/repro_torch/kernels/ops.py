@@ -432,10 +432,11 @@ class _ChunkSync:
     multi-chunk launch advances once (``taken`` blocks so far), and a flag
     per (tile of the other axes, chunk) that the chunk's block sets to the
     launch's ``epoch`` once its contribution is written, so no flag needs
-    clearing between launches.  The device's launches run in the order they
-    are issued (the current stream), so each one's blocks take the tiles
-    after the ``taken`` of those before it: one kernel's launches on a
-    device must share a stream, and none may be captured in a graph."""
+    clearing between launches.  A stream's launches run in the order they
+    are issued, so each one's blocks take the tiles after the ``taken`` of
+    those before it: the bookkeeping is kept per (kernel, device, stream),
+    so launches in flight on two streams at once never share a counter or
+    a flag, and none may be captured in a graph."""
 
     def __init__(self, device, n_flags: int):
         self.tiles = torch.zeros(1, dtype=torch.int64, device=device)
@@ -452,21 +453,34 @@ class _ChunkSync:
 _CHUNK_SYNC = {}
 
 
+def _chunk_sync_key(name: str, device) -> tuple:
+    """``_CHUNK_SYNC``'s key of kernel ``name`` launching on ``device``:
+    with the device's current stream on a GPU (a staged prefill runs its
+    scans on a stream of its own beside decode's, DESIGN.md §14)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return name, device, None
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return name, device, torch.cuda.current_stream(device).stream_id
+
+
 def _chunk_sync(name: str, device, n_flags: int) -> _ChunkSync:
-    """Kernel ``name``'s bookkeeping on ``device`` for a launch of
-    ``n_flags`` chunk blocks, its epoch advanced (fresh buffers where the
-    flags are too few, or the epoch would wrap).  Each kernel keeps its
-    own."""
+    """Kernel ``name``'s bookkeeping on ``device`` and its current stream
+    for a launch of ``n_flags`` chunk blocks, its epoch advanced (fresh
+    buffers where the flags are too few, or the epoch would wrap).  Each
+    kernel keeps its own."""
     if torch.device(device).type == "cuda" \
             and torch.cuda.is_current_stream_capturing():
         # the epoch and the tiles taken are launch arguments from the host:
         # a replayed graph would reuse them stale (ROADMAP queue 1, item 13)
         raise RuntimeError(f"{name}: the chunked kernel cannot be captured "
                            "in a CUDA graph")
-    sync = _CHUNK_SYNC.get((name, device))
+    key = _chunk_sync_key(name, device)
+    sync = _CHUNK_SYNC.get(key)
     if sync is None or sync.flags.numel() < n_flags \
             or sync.epoch >= 2 ** 31 - 1:
-        sync = _CHUNK_SYNC[(name, device)] = _ChunkSync(device, n_flags)
+        sync = _CHUNK_SYNC[key] = _ChunkSync(device, n_flags)
     sync.epoch += 1
     return sync
 

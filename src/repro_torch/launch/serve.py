@@ -12,10 +12,11 @@ Default mode is the timing simulator (paper-figure methodology), which
 imports no torch; --real runs actual token generation with a tiny model
 (random f32 weights from seed 0) under the same scheduler, on CUDA unless
 ``--device cpu`` asks for the CPU (``--device cuda`` raises without a GPU).
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
-item: ``--no-device-resident`` / ``--no-in-pool-prefill`` (item 5f) and
-``--prefill-device`` (item 9, dual-device); ``--no-dual-device`` and
-``--prefill-inflight-max`` are accepted, the port having one device only.
+``--prefill-device N`` stages prefill on a second lane (DESIGN.md §14): GPU
+``N``, which on one GPU, ``N`` being the decode GPU, is a second stream of
+it; with ``--device cpu`` the staged code runs in order on the CPU.
+Without it, staging is on when two GPUs are visible (``--no-dual-device``
+pins one lane).
 """
 from __future__ import annotations
 
@@ -117,17 +118,17 @@ def main(argv=None):
                          "hook exception tears down the whole run instead "
                          "of quarantining just the faulting flow")
     ap.add_argument("--no-dual-device", action="store_true",
-                    help="with --real: pin the single-device backend (the "
-                         "port has no other yet: dual-device execution is "
-                         "ROADMAP item 9)")
+                    help="with --real: pin the single-lane backend even "
+                         "when two GPUs are visible")
     ap.add_argument("--prefill-device", type=int, default=None,
-                    help="with --real: the device to run staged prefill "
-                         "on (dual-device execution: not ported yet, "
-                         "raises naming ROADMAP item 9)")
+                    help="with --real: stage prefill on GPU N (the decode "
+                         "GPU's index gives a second stream of it; with "
+                         "--device cpu, the CPU lane), decode and the KV "
+                         "pool stay on --device")
     ap.add_argument("--prefill-inflight-max", type=int, default=8,
                     help="with --real: bound on concurrently staged "
-                         "prefills of dual-device execution (ROADMAP item "
-                         "9); no effect on one device")
+                         "prefills of dual-device execution; beyond it a "
+                         "prefill co-locates on the decode lane")
     ap.add_argument("--strict-invariants", action="store_true",
                     help="with --real: audit slot/refcount/pin accounting "
                          "after every event-loop turn and raise "
@@ -151,14 +152,14 @@ def main(argv=None):
     if args.real:
         import torch
         from repro_torch.models import init_params
-        if args.prefill_device is not None:
-            raise NotImplementedError(
-                "--prefill-device: stage-decoupled dual-device execution is "
-                "not ported yet (ROADMAP.md queue 1, item 9)")
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("--device cuda and no GPU is visible; pass "
                                "--device cpu to serve on the CPU")
+        prefill_device = None
+        if args.prefill_device is not None:
+            prefill_device = torch.device("cuda", args.prefill_device) \
+                if device.type == "cuda" else device
         cfg = get_tiny_config(args.arch)
         params = init_params(cfg, seed=0, dtype=torch.float32, device=device)
         rng = np.random.default_rng(args.seed)
@@ -191,7 +192,10 @@ def main(argv=None):
             else args.deadline_ms / 1000.0,
             isolate_flow_faults=not args.no_isolate_flow_faults,
             strict_invariants=True if args.strict_invariants else None,
-            dual_device=False if args.no_dual_device else None)
+            dual_device=False if args.no_dual_device
+            else (True if prefill_device is not None else None),
+            prefill_device=prefill_device,
+            prefill_inflight_max=args.prefill_inflight_max)
         from repro_torch.core.engine import stream_printer
         on_token = stream_printer() if args.stream else None
         for r in reqs:

@@ -173,6 +173,18 @@ def _is_full_ring(name, x, axis, full) -> bool:
     return name in _RING_PAYLOAD and x.shape[axis + 1] == full
 
 
+def write_slot(pool, one, slot: int):
+    """Scatter batch-1 cache ``one`` into pool row ``slot`` whole, in
+    place: every ring slot, ``pos`` and the recurrent state.  The bind
+    scatter of the scratch-cache prefill baseline (``in_pool_prefill=False``):
+    O(alloc) bytes a row, where in-pool prefill's :func:`write_row_slice`
+    moves O(c) a chunk."""
+    pool["pos"].narrow(0, slot, 1).copy_(one["pos"])
+    for _, axis, (p, o) in _walk(pool, one):
+        p.narrow(axis, slot, 1).copy_(o)
+    return pool
+
+
 def read_row(pool, slot: int):
     """Batch-1 row view of pool row ``slot`` (a host int): every leaf is a
     view, so the model's in-place writes land in the pool row directly."""
@@ -301,9 +313,15 @@ def snapshot_prefix(pool, src: int, depth_cap: int, full):
     row is about to be rebound.  Every leaf is a copy: the entry must not
     change when the row does."""
     eff = min(depth_cap, full) if full else depth_cap
-    view = truncate_rings(read_row(pool, src), eff, full)
-    out = _map_states(lambda n, a, x: x.clone(), view)
-    out["pos"] = view["pos"].clone()
+    return copy_cache(truncate_rings(read_row(pool, src), eff, full))
+
+
+def copy_cache(cache):
+    """A copy of every leaf of ``cache``: what a program that may not
+    write its input in place writes (the reference's un-donated programs,
+    the ``device_resident=False`` baseline)."""
+    out = _map_states(lambda n, a, x: x.clone(), cache)
+    out["pos"] = cache["pos"].clone()
     return out
 
 
@@ -317,6 +335,22 @@ def paste_prefix(pool, entry, dst: int, hit: int, hit_cap: int,
     view = truncate_rings(entry, eff, entry_alloc)
     view = _mask_prefix_view(view, hit, eff)
     return write_row_slice(pool, view, dst, 0, eff)
+
+
+def handoff_row(pool, entry, slot: int, entry_alloc: int, full):
+    """Install a staged prefill row into pool row ``slot``, in place (the
+    stage-decoupled KV handoff, DESIGN.md §14): ``entry`` is a
+    :func:`truncate_rings` prefix of a batch-1 staging cache whose prefill
+    ran to completion, on the pool's device.  ``reset_row`` first (ring
+    slots past ``entry_alloc`` would otherwise keep the previous occupant's
+    positions), then the entry's ring prefix, ``pos`` and every recurrent,
+    shift and conv state land verbatim through :func:`write_row_slice`.  No
+    prefix mask: the staging cache's ``slot_pos`` and ``pos`` are exact,
+    which also covers windowed and recurrent leaves.  ``entry`` is read,
+    never written."""
+    reset_row(pool, slot)
+    eff = min(entry_alloc, full) if full else entry_alloc
+    return write_row_slice(pool, entry, slot, 0, eff)
 
 
 def copy_into_prefix(new, old, p: int):

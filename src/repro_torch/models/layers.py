@@ -22,11 +22,13 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 # -- RoPE -------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """(head_dim//2,) inverse frequencies."""
+    """(head_dim//2,) inverse frequencies.  ``theta`` enters as a Python
+    scalar (computed in f32, as a f32 tensor of it would be): a tensor made
+    from it on a GPU would copy it from the host, a host sync in every
+    layer's every forward."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

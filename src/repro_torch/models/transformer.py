@@ -572,6 +572,20 @@ def extend(cfg, params, cache, tokens, *, window=None, q_chunk=512,
     return logits, cache
 
 
+def prefill(cfg, params, tokens, *, max_len=None, window=None,
+            dtype=torch.bfloat16, kv_dtype=None, q_chunk=512, kv_chunk=512,
+            kernel_backend="cuda"):
+    """Full prefill of the text-only decoders: a fresh batch-``B`` cache of
+    ``max_len`` (default: the prompt's length) and one :func:`extend` over
+    the whole prompt.  tokens: (B, S) int on the parameters' device.
+    Returns (logits_last (B, V), cache)."""
+    B, S = tokens.shape
+    cache = init_cache(cfg, params, B, max_len or S, dtype, window=window,
+                       kv_dtype=kv_dtype)
+    return extend(cfg, params, cache, tokens, window=window, q_chunk=q_chunk,
+                  kv_chunk=kv_chunk, kernel_backend=kernel_backend)
+
+
 def extend_row(cfg, params, pool, tokens, slot: int, kv_limit=None,
                full_alloc=None, **kw):
     """Chunked prefill straight into batch row ``slot`` of a slot-pool cache

@@ -610,7 +610,8 @@ def test_scan_launches_in_a_row_reuse_the_buffers(cuda):
             continue
         args = _rglru_on_card(3, S, 300, torch.bfloat16, cuda, seed=i)
         calls.append((ref.rglru_scan, args, ops.rglru_scan(*args)))
-        sync = ops._CHUNK_SYNC[("rglru_scan", args[0].device)]
+        sync = ops._CHUNK_SYNC[ops._chunk_sync_key("rglru_scan",
+                                                    args[0].device)]
         if first is None:
             first, epoch0, taken0 = sync, sync.epoch, sync.taken
     multi = sum(1 for fn, a, _ in calls[1:] if fn is ref.rglru_scan
@@ -1065,3 +1066,187 @@ def test_tiny_train_step_through_kernels_matches_plain_path(cuda, arch):
     for name, g in gp.items():
         rel = (gc[name] - g).norm() / g.norm()
         assert rel <= 1e-4, (name, float(rel))
+
+
+# -- stage-decoupled execution on the card (DESIGN.md §14) ----------------------
+def test_chunked_scans_on_two_streams_at_once(cuda):
+    """Multi-chunk launches of each scan in flight on two streams at once
+    (both queued behind the same device spin, so they start together):
+    each stream keeps its own chunk-order counter and flags
+    (``ops._chunk_sync`` keys the stream), and every result equals the
+    plain version's."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    main = torch.cuda.current_stream()
+    calls = []
+    for rep in range(3):
+        inputs = [(_rglru_on_card(2, 700, 520, torch.bfloat16, cuda,
+                                  seed=10 * rep + i),
+                   _rwkv6_on_card(rwkv6_case(32, 300, 64, seed=10 * rep + i),
+                                  torch.bfloat16, cuda, True))
+                  for i in range(2)]
+        for s in streams:
+            s.wait_stream(main)
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(2_000_000)
+        for s, (rg, wk) in zip(streams, inputs):
+            with torch.cuda.stream(s):
+                calls.append((ref.rglru_scan, rg, ops.rglru_scan(*rg)))
+                calls.append((ref.rwkv6_scan, wk, ops.rwkv6_scan(*wk)))
+    keys = {ops._chunk_sync_key(n, cuda) for n in ("rglru_scan",
+                                                   "rwkv6_scan")}
+    for s in streams:
+        with torch.cuda.stream(s):
+            for n in ("rglru_scan", "rwkv6_scan"):
+                key = ops._chunk_sync_key(n, cuda)
+                assert key in ops._CHUNK_SYNC and key not in keys
+    torch.cuda.synchronize()
+    for fn, args, got in calls:
+        plain = fn(*args)
+        _assert_close(got[0], plain[0], torch.bfloat16)
+        torch.testing.assert_close(got[1], plain[1], rtol=1e-4, atol=1e-4)
+
+
+def _tiny_llama(cuda, arch="llama3-405b"):
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import init_params
+    cfg = get_tiny_config(arch)
+    return cfg, init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+
+
+def _staged_backend(cfg, params, cuda, **kw):
+    """A ``DualDeviceBackend`` whose prefill lane is a second stream of the
+    card (the prefill device named as the decode device)."""
+    from repro_torch.core.backend import DualDeviceBackend
+    be = DualDeviceBackend(cfg, params, pool_slots=2, max_len=256,
+                           device=cuda, prefill_device=cuda, **kw)
+    assert be.dual_device and be._pf_stream is not None
+    assert be._pf_stream != torch.cuda.current_stream()
+    return be
+
+
+def _prompt_req(cfg, rid, n, seed):
+    from repro_torch.core import Priority, Request
+    return Request(id=rid, priority=Priority.PROACTIVE, prompt_len=n,
+                   max_new_tokens=4, arrival_time=0.0,
+                   tokens=np.random.default_rng(seed).integers(
+                       0, cfg.vocab_size, (1, n)))
+
+
+def _row_of(pool, slot, n):
+    """Pool row ``slot``'s ``pos`` and its first ``n`` ring slots of every
+    leaf (the rest of a reused row is stale payload under -1)."""
+    out = [pool["pos"][slot].clone()]
+    for st in pool["blocks"].values():
+        for name, x in sorted(st.items()):
+            out.append(x[:, slot, :n].clone())
+    return out
+
+
+def test_staged_handoff_race_equals_sequential_twin(cuda):
+    """The handoff's install waits behind a spin queued on the decode
+    stream while the next prefill is staged at once into the recycled
+    staging cache (``prefill_inflight_max=1``): the recycled cache is reset
+    only after the install read it, and the first token's one host fetch
+    waits on the prefill lane only (the decode stream is still spinning
+    when ``prefill_done`` returns).  Both installed rows equal a twin's
+    that synchronises after every step."""
+    cfg, params = _tiny_llama(cuda)
+    reqs = [(_prompt_req(cfg, 1, 160, 1), 1), (_prompt_req(cfg, 2, 150, 2),
+                                               0)]
+    rows = {}
+    for racing in (True, False):
+        be = _staged_backend(cfg, params, cuda, prefill_inflight_max=1)
+        for r, _ in reqs:
+            be.register(r)
+        a, b = reqs[0][0], reqs[1][0]
+        be.prefill_chunk(a, 0, 128, 0.0)
+        be.prefill_chunk(a, 128, 32, 0.0)
+        if racing:
+            torch.cuda._sleep(200_000_000)  # ~0.1 s on the decode stream
+        else:
+            torch.cuda.synchronize()
+        be.prefill_done(a, 0.0)
+        if racing:
+            assert not torch.cuda.current_stream().query()
+        else:
+            torch.cuda.synchronize()
+        be.prefill_chunk(b, 0, 128, 0.0)  # the recycled staging cache
+        assert not be._staging_free and be.colocated_backpressure == 0
+        be.prefill_chunk(b, 128, 22, 0.0)
+        be.prefill_done(b, 0.0)
+        torch.cuda.synchronize()
+        assert be.handoff_device_calls == be.staged_prefills == 2
+        rows[racing] = ([_row_of(be._pool, be._slot[r.id], 256)
+                         for r, _ in reqs],
+                        [be.output_tokens(r.id) for r, _ in reqs],
+                        be._toks.clone())
+        assert be.validate() == []
+    for x, y in zip(rows[True][0], rows[False][0]):
+        assert all(torch.equal(p, q) for p, q in zip(x, y))
+    assert rows[True][1] == rows[False][1]
+    assert torch.equal(rows[True][2], rows[False][2])
+
+
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b",
+                                  "recurrentgemma-9b", "rwkv6-1.6b"])
+def test_staged_prefill_chunks_issue_no_host_sync(cuda, arch):
+    """A staged prefill's chunks (the prompt's pinned upload, the staging
+    cache, every bucket's forward, the chunked scans among them, and the
+    next-token scalar) issue no host sync until ``prefill_done``'s one
+    fetch, in every served family."""
+    cfg, params = _tiny_llama(cuda, arch)
+    be = _staged_backend(cfg, params, cuda)
+    warm, r = _prompt_req(cfg, 1, 100, 3), _prompt_req(cfg, 2, 100, 4)
+    for q in (warm, r):
+        be.register(q)
+    be.prefill_chunk(warm, 0, 100, 0.0)  # first use of every shape
+    be.prefill_done(warm, 0.0)
+    torch.cuda.synchronize()
+    syncs = be.host_syncs
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        be.prefill_chunk(r, 0, 64, 0.0)
+        be.prefill_chunk(r, 64, 36, 0.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert be.host_syncs == syncs
+    be.prefill_done(r, 0.0)
+    assert be.host_syncs == syncs + 1
+    assert be.prefill_host_syncs == 2
+
+
+@pytest.mark.parametrize("lane", ["stream", "second_gpu"])
+def test_tiny_dual_serve_on_card_equals_single_lane(cuda, lane):
+    """A tiny f32 serve with prefill staged on a second stream (or on a
+    second GPU, the weights copied there and the staged row moved across)
+    streams the single-lane engine's tokens (both through the kernels),
+    flow for flow, with every prefill handed off."""
+    from repro_torch.core import Priority, Request
+    from repro_torch.core.engine import RealAgentXPUEngine
+    if lane == "second_gpu" and torch.cuda.device_count() < 2:
+        pytest.skip("needs a second GPU")
+    pf = torch.device("cuda", 0 if lane == "stream" else 1)
+    cuda = torch.device("cuda", 0)
+    cfg, params = _tiny_llama(cuda)
+    rng = np.random.default_rng(5)
+    toks = [rng.integers(0, cfg.vocab_size, (1, n)) for n in (150, 90, 40)]
+    out = {}
+    for dual in (True, False):
+        eng = RealAgentXPUEngine(
+            cfg, params, max_len=256, device=cuda, decode_segment_steps=4,
+            dual_device=dual, prefill_device=pf if dual else None)
+        m = eng.serve([Request(id=i, priority=Priority.REACTIVE if i == 2
+                               else Priority.PROACTIVE,
+                               prompt_len=t.shape[1], max_new_tokens=12,
+                               arrival_time=0.002 * i, tokens=t)
+                       for i, t in enumerate(toks)])
+        assert len(m.completed) == 3
+        st = eng.stats()
+        if dual:
+            assert st["dual_device"] and st["staged_prefills"] >= 1
+            assert st["staged_prefills"] + st["colocated_affinity"] == 3
+            assert st["handoff_device_calls"] == st["staged_prefills"]
+        assert eng.backend.validate() == []
+        out[dual] = [eng.output_tokens(i) for i in range(3)]
+    assert out[True] == out[False]

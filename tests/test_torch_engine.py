@@ -112,17 +112,29 @@ SYSTEM = 24
     (ARCH, {"max_fused_steps": 1}, SYSTEM),
     ("qwen2-moe-a2.7b", {}, SYSTEM),
     ("recurrentgemma-9b", {}, SYSTEM),
+    (ARCH, {"in_pool_prefill": False}, 0),
+    (ARCH, {"device_resident": False}, 0),
+    ("qwen2-moe-a2.7b", {"in_pool_prefill": False}, 0),
+    ("qwen2-moe-a2.7b", {"device_resident": False}, 0),
+    ("recurrentgemma-9b", {"in_pool_prefill": False}, 0),
+    ("recurrentgemma-9b", {"device_resident": False}, 0),
+    ("rwkv6-1.6b", {"in_pool_prefill": False}, 0),
+    ("rwkv6-1.6b", {"device_resident": False}, 0),
 ], ids=["fused", "int8", "per_step", "moe_fused", "moe_per_step",
         "rglru_fused", "rglru_int8", "rglru_tail_fused",
         "rglru_tail_per_step", "rwkv6_fused", "rwkv6_per_step",
         "prefix_fused", "prefix_int8", "prefix_per_step", "prefix_moe",
-        "prefix_rglru"])
+        "prefix_rglru", "scratch", "legacy", "moe_scratch", "moe_legacy",
+        "rglru_scratch", "rglru_legacy", "rwkv6_scratch", "rwkv6_legacy"])
 def test_engine_matches_reference(arch, kw, shared):
     """Without a shared prefix the cache is off on both sides (random
     prompts over a tiny vocabulary can share a first token, which the
     reference, run without the cache, must not turn into hits); with one,
     both sides run their default, the cache on.  recurrentgemma fails
-    ``prefix_reuse_supported`` and serves cold on both sides."""
+    ``prefix_reuse_supported`` and serves cold on both sides.  The
+    scratch-cache (``in_pool_prefill=False``) and pre-donation
+    (``device_resident=False``) baselines bind every prompt with one
+    full-row scatter; the latter fuses no decode run."""
     jcfg, jp, tcfg, tp = _weights(arch)
     flows = _flows(jcfg.vocab_size, shared)
     cache = dict(prefix_cache=False) if not shared else {}
@@ -146,7 +158,14 @@ def test_engine_matches_reference(arch, kw, shared):
         assert ts["prefix_fallbacks"] == 0
     # CPU tensors never reach a kernel
     assert ops.LAUNCHES == before
-    if "max_fused_steps" not in kw and not shared:
+    baseline = kw.get("in_pool_prefill", True) is False \
+        or kw.get("device_resident", True) is False
+    if baseline:
+        assert ts["bind_device_calls"] == len(flows)
+        assert ts["kv_bytes_prefill"] > 0
+    if kw.get("device_resident", True) is False:
+        assert ts["fused_steps"] == 0
+    elif "max_fused_steps" not in kw and not shared:
         assert ts["fused_steps"] > 0
         # the reference's scheduler aborts no fused run of this trace for
         # rwkv6 (no attention kernels: the reactive prefill rides beside
@@ -210,16 +229,6 @@ def test_init_params_needs_a_gpu_unless_asked_for_cpu():
         pytest.skip("a GPU is visible: the default device is valid here")
     with pytest.raises(RuntimeError, match="no GPU"):
         init_params(t_tiny(ARCH), seed=0, dtype=torch.float32)
-
-
-@pytest.mark.parametrize("kw", [{"dual_device": True},
-                                {"device_resident": False},
-                                {"in_pool_prefill": False}])
-def test_unported_knobs_raise_naming_roadmap(kw):
-    cfg = t_tiny(ARCH)
-    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(cfg, params, device="cpu", **kw)
 
 
 def test_cancel_mid_run_frees_the_slot():

@@ -421,7 +421,8 @@ def _check_chunk_sync(name):
     more flags than they hold (or an epoch at the int32 limit) start fresh
     zeroed buffers."""
     dev = torch.device("cpu")
-    ops._CHUNK_SYNC.pop((name, dev), None)
+    key = ops._chunk_sync_key(name, dev)
+    ops._CHUNK_SYNC.pop(key, None)
     a = ops._chunk_sync(name, dev, 64)
     assert (a.epoch, a.taken, a.flags.numel()) == (1, 0, 64)
     assert a.args()[1::2] == (0, 1)  # (tiles, taken, flags, epoch)
@@ -434,7 +435,7 @@ def _check_chunk_sync(name):
     assert not c.flags.any() and not c.tiles.any()
     c.epoch = 2 ** 31 - 1
     assert ops._chunk_sync(name, dev, 8).epoch == 1
-    ops._CHUNK_SYNC.pop((name, dev))
+    ops._CHUNK_SYNC.pop(key)
 
 
 def test_rwkv6_sync_epochs_and_buffers():
@@ -454,7 +455,7 @@ def test_scans_keep_their_own_chunk_sync():
     one scan never advances the other's epoch or tiles taken."""
     dev = torch.device("cpu")
     for name in ("rwkv6_scan", "rglru_scan"):
-        ops._CHUNK_SYNC.pop((name, dev), None)
+        ops._CHUNK_SYNC.pop(ops._chunk_sync_key(name, dev), None)
     w = ops._chunk_sync("rwkv6_scan", dev, 16)
     w.taken = 16
     r = ops._chunk_sync("rglru_scan", dev, 16)
@@ -462,7 +463,7 @@ def test_scans_keep_their_own_chunk_sync():
     assert ops._chunk_sync("rwkv6_scan", dev, 16).epoch == 2
     assert (r.epoch, r.taken, w.taken) == (1, 0, 16)
     for name in ("rwkv6_scan", "rglru_scan"):
-        ops._CHUNK_SYNC.pop((name, dev))
+        ops._CHUNK_SYNC.pop(ops._chunk_sync_key(name, dev))
 
 
 @pytest.mark.parametrize("S", [1, 15, 16, 17, 32, 33, 300, 512])
@@ -503,7 +504,7 @@ def test_chunked_scans_refuse_graph_capture(name, monkeypatch):
                         lambda: True)
     with pytest.raises(RuntimeError, match="CUDA graph"):
         ops._chunk_sync(name, dev, 8)
-    assert (name, dev) not in ops._CHUNK_SYNC
+    assert not any(k[:2] == (name, dev) for k in ops._CHUNK_SYNC)
 
 
 # the RG-LRU kernel's chunk boundaries (a chunk is 16 tokens) and the

@@ -8,6 +8,8 @@ framework (fused == per-step, elastic == full pool, untouched inactive rows)
 is asserted bit for bit here too.  The recurrent families run with a tiny
 recurrentgemma variant that has an unrolled tail, which the reference's
 tiny config lacks (``torch_recurrent_cases.TAIL``)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -723,3 +725,129 @@ def test_training_forward_of_unported_families_raises(arch):
     toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.forward(cfg, None, toks, kernel_backend="plain")
+
+
+# -- the stage-decoupled handoff and the scratch bind (DESIGN.md §14) ---------
+HANDOFF_MAX_LEN = 64
+_cached_weights = functools.lru_cache(maxsize=None)(_weights)
+
+
+def _random_cache_pair(jcfg, jp, batch, pos, kv_dtype, dtype, rng):
+    """The same random cache as the reference's (jax) and the port's
+    (torch): every leaf of every section drawn with numpy, ``slot_pos``
+    holding each row's last ``alloc`` positions below ``pos[row]`` at
+    ``position % alloc`` (-1 elsewhere), as a prefill leaves them."""
+    tdt = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[dtype]
+    shape = J.init_cache(jcfg, jp, batch, HANDOFF_MAX_LEN, dtype,
+                         kv_dtype=kv_dtype)
+    pos = np.asarray(pos, np.int32)
+
+    def leaf(name, x, axis):
+        if name == "slot_pos":
+            alloc = x.shape[-1]
+            p = pos.reshape((1,) * axis + (-1, 1))
+            ring = np.arange(alloc, dtype=np.int32)
+            # the live position of each ring slot: the last one below pos
+            live = ring + ((p - 1 - ring) // alloc) * alloc
+            v = np.where((ring < p) & (live >= 0), live, -1)
+            return (jnp.asarray(np.broadcast_to(v, x.shape).astype(np.int32)),
+                    torch.from_numpy(np.broadcast_to(v, x.shape)
+                                     .astype(np.int32).copy()))
+        if x.dtype == jnp.int8:
+            v = rng.integers(-127, 128, x.shape, dtype=np.int8)
+            return jnp.asarray(v), torch.from_numpy(v)
+        if name in ("k_scale", "v_scale"):
+            v = rng.uniform(0.01, 1.0, x.shape).astype(np.float32)
+        else:
+            v = rng.standard_normal(x.shape, dtype=np.float32)
+        t = torch.from_numpy(v)
+        return (jnp.asarray(v).astype(x.dtype),
+                t.to(tdt) if x.dtype == jnp.bfloat16 else t)
+
+    def section(states, axis):
+        pairs = [{n: leaf(n, x, axis) for n, x in st.items()}
+                 for st in states]
+        return ([{n: p[0] for n, p in d.items()} for d in pairs],
+                [{n: p[1] for n, p in d.items()} for d in pairs])
+
+    jc = {"pos": jnp.asarray(pos)}
+    tc = {"pos": torch.from_numpy(pos.copy())}
+    for sec in ("head", "tail"):
+        js, ts = section(shape[sec], 0)
+        jc[sec], tc[sec] = tuple(js), tuple(ts)
+    keys = list(shape["blocks"])
+    js, ts = section([shape["blocks"][k] for k in keys], 1)
+    jc["blocks"] = dict(zip(keys, js))
+    tc["blocks"] = {str(k): v for k, v in zip(keys, ts)}
+    return jc, tc
+
+
+def _assert_cache_bitwise(tc, jc):
+    jleaves = jax.tree_util.tree_leaves(
+        {"pos": jc["pos"], "head": jc["head"], "tail": jc["tail"],
+         "blocks": {str(k): v for k, v in jc["blocks"].items()}})
+    tleaves = jax.tree_util.tree_leaves(
+        {"pos": tc["pos"], "head": tc["head"], "tail": tc["tail"],
+         "blocks": tc["blocks"]})
+    assert len(tleaves) == len(jleaves) > 1
+    for t, j in zip(tleaves, jleaves):
+        assert tuple(t.shape) == tuple(j.shape)
+        assert np.array_equal(_as_np(t), _as_np(j))
+
+
+@pytest.mark.parametrize("arch,dtype,kv_dtype,prompt_len", [
+    ("llama3-405b", jnp.bfloat16, None, 21),
+    ("llama3-405b", jnp.bfloat16, "int8", 40),
+    ("qwen2-moe-a2.7b", jnp.bfloat16, None, 21),
+    (TAIL, jnp.bfloat16, None, 40),
+    ("rwkv6-1.6b", jnp.bfloat16, None, 21)],
+    ids=["llama_bf16", "llama_int8", "moe", "rglru_tail", "rwkv6"])
+def test_handoff_row_and_write_slot_match_jax(arch, dtype, kv_dtype,
+                                              prompt_len):
+    """``write_slot`` (the scratch baseline's bind) and ``handoff_row`` of
+    a staging entry truncated to the prompt's pow-2 cap (a view here, a copy
+    in the reference) against the reference's on the same random pool and
+    staging cache: every leaf bit for bit (ring payload, int8 scales,
+    ``slot_pos``, ``pos``, the RG-LRU ``h``/``conv`` of blocks and the
+    unrolled tail, the RWKV6 WKV and shift states); the entry is read, never
+    written.  At prompt 40 the 32-slot window of recurrentgemma has wrapped
+    and its ring is carried whole; at 21 a full ring is cut to 32 slots."""
+    jcfg, jp, _, _ = _cached_weights(arch)
+    rng = np.random.default_rng(prompt_len)
+    jpool, tpool = _random_cache_pair(jcfg, jp, 3, [9, 50, 30], kv_dtype,
+                                      dtype, rng)
+    jone, tone = _random_cache_pair(jcfg, jp, 1, [prompt_len], kv_dtype,
+                                    dtype, rng)
+    full = HANDOFF_MAX_LEN
+    jpool = J.write_slot(jpool, jone, jnp.int32(0))
+    assert T.write_slot(tpool, tone, 0) is tpool
+    _assert_cache_bitwise(tpool, jpool)
+    cap = 1 << (prompt_len - 1).bit_length()
+    kept = _clone(tone)
+    jentry = J.truncate_rings(jone, cap, full)
+    tentry = T.truncate_rings(tone, cap, full)
+    jpool = J.handoff_row(jpool, jentry, jnp.int32(2), cap, full)
+    assert T.handoff_row(tpool, tentry, 2, cap, full) is tpool
+    _assert_cache_bitwise(tpool, jpool)
+    assert _pool_equal(tone, kept)
+    assert tpool["pos"].tolist() == [prompt_len, 50, prompt_len]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_match_jax(arch):
+    """``models.prefill`` (a fresh cache, one ``extend``: the reference's
+    sequential oracle) against the reference's on the same prompt, with
+    the cache sized to ``max_len`` or, by default, to the prompt."""
+    jcfg, jp, tcfg, tp = _cached_weights(arch)
+    toks = _tokens(jcfg, (2, 19))
+    jl, jc = J.prefill(jcfg, jp, jnp.asarray(toks), max_len=48,
+                       dtype=jnp.float32)
+    tl, tc = T.prefill(tcfg, tp, torch.from_numpy(toks), max_len=48,
+                       dtype=torch.float32)
+    _close(tl, jl, 3e-3)
+    assert tc["pos"].tolist() == np.asarray(jc["pos"]).tolist() == [19, 19]
+    _, short = T.prefill(tcfg, tp, torch.from_numpy(toks),
+                         dtype=torch.float32)
+    _, jshort = J.prefill(jcfg, jp, jnp.asarray(toks), dtype=jnp.float32)
+    assert sorted(tuple(x.shape) for x in _flat(short)) == sorted(
+        tuple(x.shape) for x in jax.tree_util.tree_leaves(jshort))

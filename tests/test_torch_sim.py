@@ -769,12 +769,44 @@ def test_serve_launcher_real_needs_a_gpu_unless_asked_for_cpu():
         pytest.skip("a GPU is visible: the default device is valid here")
     with pytest.raises(RuntimeError, match="no GPU"):
         main(["--real", "--horizon", "5"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--real", "--horizon", "5", "--prefill-device", "1",
-              "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="5f"):
-        main(["--real", "--horizon", "5", "--no-in-pool-prefill",
-              "--device", "cpu"])
+
+
+def test_serve_launcher_staged_prefill_on_cpu_lane(capsys):
+    """``--real --device cpu --prefill-device 0``: prefill staged on the
+    CPU lane (the staged code in order), the ``[real] dual device`` line
+    printed, and the same summary as the reference's launcher given the
+    same flags (on one JAX device, where it co-locates: staging is
+    backend-local, so the scheduler's clock does not move)."""
+    from repro.launch.serve import main as j_main
+    from repro_torch.launch.serve import main as t_main
+    argv = ["--real", "--horizon", "3", "--prefill-device", "0"]
+    want = _launcher_json(j_main, argv, capsys)
+    got = _launcher_json(t_main, argv + ["--device", "cpu"], capsys)
+    assert got == want and got["n_completed"] > 0
+    t_main(argv + ["--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    dual = [ln for ln in lines if ln.startswith("[real] dual device:")]
+    assert len(dual) == 1
+    assert "prefill on cpu (in-order lane), decode on cpu" in dual[0]
+    staged = int(dual[0].split(", ")[2].split()[0])
+    assert staged > 0
+    assert any("16 slots free at exit" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("flag", ["--no-device-resident",
+                                  "--no-in-pool-prefill"])
+def test_serve_launcher_baselines_on_cpu(flag, capsys):
+    """The launcher's baseline flags run, and each prefill is bound with one
+    full-row scatter, as the reference's."""
+    from repro_torch.launch.serve import main as t_main
+    t_main(["--real", "--horizon", "3", "--device", "cpu", flag])
+    lines = capsys.readouterr().out.splitlines()
+    prefill = next(ln for ln in lines if ln.startswith("[real] prefill:"))
+    calls, syncs = (int(prefill.split(", ")[i].split()[0]) for i in (1, 2))
+    assert calls == syncs > 0  # one bind scatter, one host sync a prompt
+    fused = next(ln for ln in lines if "fused decode steps" in ln)
+    assert (" 0 fused decode steps" in fused) == (flag ==
+                                                   "--no-device-resident")
 
 
 def test_serve_launcher_sim_mode_imports_no_torch():
@@ -800,3 +832,498 @@ print("OK")
                          cwd=__file__.rsplit("/", 2)[0], timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.rstrip().endswith("OK")
+
+
+# -- mirrors of tests/test_dual_device.py: stage-decoupled execution -----------
+# The port's staged path runs on the CPU lane: an explicit prefill_device
+# equal to the decode device runs the staged code in order, every line of
+# it (staging cache, truncation, handoff_row, recycling, the sticky
+# decisions and their fallbacks), where the reference needs two devices.
+def _dual_engine(dual=True, **kw):
+    """The port's engine on tiny llama3-405b (the reference's weights):
+    staged prefill on the CPU lane, or (``dual=False``) one lane."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.engine import RealAgentXPUEngine as TEngine
+    lane = dict(dual_device=True, prefill_device="cpu") if dual \
+        else dict(dual_device=False)
+    return TEngine(get_tiny_config("llama3-405b"), _llama()[2],
+                   device="cpu", **lane, **kw)
+
+
+def _dual_backend(**kw):
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.backend import DualDeviceBackend
+    return DualDeviceBackend(get_tiny_config("llama3-405b"), _llama()[2],
+                             device="cpu", prefill_device="cpu", **kw)
+
+
+def _j_reference_tokens(prompt, n_out, max_len):
+    """The reference's unscheduled batch-1 greedy tokens (its
+    ``_reference_tokens``: ``models.prefill`` then one ``extend`` a
+    token)."""
+    from repro.models import extend, prefill
+    cfg, jp, _ = _llama()
+    lg, cache = prefill(cfg, jp, jnp.asarray(prompt), max_len=max_len,
+                        dtype=jnp.float32)
+    out = [int(lg.argmax(-1)[0])]
+    for _ in range(n_out - 1):
+        lg, cache = extend(cfg, jp, cache, jnp.asarray([[out[-1]]],
+                                                       jnp.int32))
+        out.append(int(lg.argmax(-1)[0]))
+    return out
+
+
+def _mixed_trace(plen=160, out=6):
+    """tests/test_dual_device.py's trace: multi-chunk proactive prefills,
+    a flow repeating flow 0's prompt (its prefix hit comes off the decode
+    pool), reactives arriving mid-prefill and mid-decode."""
+    from repro_torch.core import Priority, Request
+    vocab = _llama()[0].vocab_size
+
+    def pro(i, arrival=0.0, seed=None):
+        return Request(id=i, priority=Priority.PROACTIVE, prompt_len=plen,
+                       max_new_tokens=out, arrival_time=arrival,
+                       tokens=np.random.default_rng(
+                           i if seed is None else seed).integers(
+                               0, vocab, (1, plen)))
+
+    reqs = [pro(0), pro(1), pro(8, arrival=0.003, seed=0)]
+    for k, t in ((0, 0.0008), (1, 0.004)):
+        reqs.append(Request(
+            id=20 + k, priority=Priority.REACTIVE, prompt_len=16,
+            max_new_tokens=4, arrival_time=t,
+            tokens=np.random.default_rng(100 + k).integers(0, vocab,
+                                                           (1, 16))))
+    return reqs
+
+
+# -- mirrors of tests/test_backend.py's baseline tests --------------------------
+def _backend_reqs(rng, arrivals, prompt_lens, out):
+    """tests/test_backend.py's trace: flow 1 reactive, the rest proactive."""
+    from repro_torch.core import Priority, Request
+    vocab = _llama()[0].vocab_size
+    return [Request(id=i, priority=Priority.REACTIVE if i == 1
+                    else Priority.PROACTIVE, prompt_len=n, max_new_tokens=out,
+                    arrival_time=t, tokens=rng.integers(0, vocab, (1, n)))
+            for i, (t, n) in enumerate(zip(arrivals, prompt_lens))]
+
+
+def test_legacy_mode_is_token_exact():
+    """``device_resident=False`` (the pre-donation baseline): the reference's
+    tokens, no fused run."""
+    eng = _dual_engine(False, max_len=128, device_resident=False)
+    reqs = _backend_reqs(np.random.default_rng(19), [0.0, 0.01], [14, 12], 4)
+    eng.serve(copy.deepcopy(reqs))
+    st = eng.stats()
+    assert st["fused_steps"] == 0
+    assert not eng.backend.elastic_decode and not eng.backend.in_pool_prefill
+    for r in reqs:
+        assert eng.output_tokens(r.id) == _j_reference_tokens(
+            r.tokens, 4, 128), f"req {r.id}"
+
+
+def test_scratch_bind_baseline_token_exact():
+    """``in_pool_prefill=False`` (the scratch-cache baseline) stays exact
+    with its double KV write in the counters; the in-pool default binds
+    nothing and writes fewer KV bytes."""
+    eng = _dual_engine(False, max_len=128, pool_slots=2,
+                       in_pool_prefill=False)
+    # two waves, so freed slots are rebound through the bind scatter
+    reqs = _backend_reqs(np.random.default_rng(21), [0.0, 0.01, 5.0, 5.01],
+                         [16, 12, 18, 14], 5)
+    eng.serve(copy.deepcopy(reqs))
+    st = eng.stats()
+    assert st["bind_device_calls"] == len(reqs)
+    assert st["prefill_host_syncs"] == len(reqs)
+    for r in reqs:
+        assert eng.output_tokens(r.id) == _j_reference_tokens(
+            r.tokens, 5, 128), f"req {r.id}"
+    pool = _dual_engine(False, max_len=128, pool_slots=2)
+    pool.serve(copy.deepcopy(reqs))
+    stp = pool.stats()
+    assert stp["bind_device_calls"] == 0
+    assert stp["prefill_host_syncs"] == len(reqs)
+    assert 0 < stp["kv_bytes_prefill"] < st["kv_bytes_prefill"]
+    for r in reqs:
+        assert pool.output_tokens(r.id) == eng.output_tokens(r.id)
+
+
+# -- tests/test_dual_device.py's own tests, the staged path on the CPU lane ---
+def test_cpu_lane_is_a_second_lane():
+    """The CPU lane is a lane of its own (the reference's two-device leg):
+    staging is on and the stats name two lanes; without an explicit lane
+    the CPU has none, and every prefill co-locates, as the reference does
+    on one device."""
+    be = _dual_backend(pool_slots=2, max_len=256)
+    st = be.stats()
+    assert be.dual_device and st["dual_device"]
+    assert st["prefill_device"] != st["decode_device"] == "cpu"
+    assert be._pf_stream is None  # in order on the CPU
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core.engine import RealAgentXPUEngine as TEngine
+    colo = TEngine(get_tiny_config("llama3-405b"), _llama()[2], device="cpu",
+                   dual_device=True, max_len=256)
+    cst = colo.stats()
+    assert not cst["dual_device"]
+    assert cst["prefill_device"] == cst["decode_device"] == "cpu"
+
+
+def test_dual_mesh_raises_typed_without_a_gpu():
+    """The port's stage lanes (the production mesh stays unported) fail
+    typed on a host without a GPU: requested and available lanes, an
+    actionable message, a RuntimeError for old callers."""
+    from repro_torch.launch.mesh import MeshDeviceError, dual_stage_devices
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: it has two lanes")
+    with pytest.raises(MeshDeviceError) as ei:
+        dual_stage_devices()
+    assert (ei.value.requested, ei.value.available) == (2, 1)
+    assert "GPU" in str(ei.value)
+    assert isinstance(ei.value, RuntimeError)
+    with pytest.raises(MeshDeviceError):
+        dual_stage_devices("cpu")
+
+
+def test_dual_device_mesh_and_stage_order():
+    """Decode keeps its device and stream; prefill takes the next GPU, or
+    a stream of its own on one GPU; without a GPU, (2, 1) typed."""
+    from repro_torch.launch.mesh import (MeshDeviceError, dual_stage_devices,
+                                         make_dual_device_mesh)
+    if not torch.cuda.is_available():
+        with pytest.raises(MeshDeviceError) as ei:
+            make_dual_device_mesh()
+        assert (ei.value.requested, ei.value.available) == (2, 1)
+        return
+    mesh = make_dual_device_mesh()
+    assert mesh.axis_names == ("stage",) and len(mesh.lanes) == 2
+    dec, pf = dual_stage_devices()
+    assert dec.device == torch.device("cuda", torch.cuda.current_device())
+    assert dec.stream == torch.cuda.current_stream()
+    if torch.cuda.device_count() >= 2:
+        assert pf.device != dec.device
+    else:
+        assert pf.device == dec.device and pf.stream != dec.stream
+
+
+def test_dual_engine_token_exact_mixed_trace():
+    """Every flow of the mixed preemption / prefix-hit trace streams the
+    same tokens from the staged engine and the single-lane one, the
+    kernel-completion traces are equal, and flows 0 and 20 equal the
+    reference's unscheduled tokens."""
+    kw = dict(max_len=256, pool_slots=6, decode_segment_steps=4)
+    dual, single = _dual_engine(True, **kw), _dual_engine(False, **kw)
+    reqs = _mixed_trace()
+    dual.serve(copy.deepcopy(reqs))
+    single.serve(copy.deepcopy(reqs))
+    for r in reqs:
+        assert dual.output_tokens(r.id) == single.output_tokens(r.id), \
+            f"req {r.id}"
+    assert dual.last_trace == single.last_trace
+    assert dual.output_tokens(0) == _j_reference_tokens(reqs[0].tokens, 6,
+                                                        256)
+    assert dual.output_tokens(20) == _j_reference_tokens(reqs[3].tokens, 4,
+                                                         256)
+    assert dual.backend.validate() == []
+    st = dual.stats()
+    assert "contention_pressure_peak" in st
+    assert st["co_execution_decode_slowdown_model"] >= 1.0
+    assert st["dual_device"]
+    assert st["staged_prefills"] > 0  # cold prompts really staged
+    assert st["handoff_device_calls"] == st["staged_prefills"]
+    assert st["kv_bytes_handoff"] > 0
+    assert st["colocated_hits"] >= 1  # the duplicate-prompt flow
+    assert st["prefill_device"] != st["decode_device"]
+    assert not dual.backend._staged and not dual.backend._scratch
+
+
+def test_sim_and_real_dual_traces_identical_with_aborts():
+    """Staging is backend-local: a sim run and a staged real run give the
+    same kernel-completion trace when a reactive abort fires mid-plan."""
+    from repro_torch.core import Priority, Request
+    eng_real = _dual_engine(True, max_len=128, pool_slots=8,
+                            decode_segment_steps=2)
+    cfg = eng_real.cfg
+    rng = np.random.default_rng(43)
+    pro = [Request(id=i, priority=Priority.PROACTIVE, prompt_len=plen,
+                   max_new_tokens=16, arrival_time=0.0,
+                   tokens=rng.integers(0, cfg.vocab_size, (1, plen)))
+           for i, plen in enumerate([14, 12])]
+    probe = TAgentXPUEngine(cfg, decode_segment_steps=2)
+    probe.run_trace(copy.deepcopy(pro))
+    steps = [t for kind, _, t in probe.last_trace if kind == "decode_step"]
+    reqs = pro + [Request(
+        id=9, priority=Priority.REACTIVE, prompt_len=10, max_new_tokens=4,
+        arrival_time=steps[int(len(steps) * 0.4)],
+        tokens=rng.integers(0, cfg.vocab_size, (1, 10)))]
+    eng_sim = TAgentXPUEngine(cfg, decode_segment_steps=2)
+    m_sim = eng_sim.run_trace(copy.deepcopy(reqs))
+    m_real = eng_real.serve(copy.deepcopy(reqs))
+    st = eng_real.stats()
+    assert st["aborted_runs"] > 0 and st["staged_prefills"] > 0
+    assert eng_sim.last_trace == eng_real.last_trace
+    assert m_sim.sim_time == m_real.sim_time
+
+
+def _staged_req(rid, vocab, rng):
+    from repro_torch.core import Priority, Request
+    return Request(id=rid, priority=Priority.PROACTIVE, prompt_len=160,
+                   max_new_tokens=4, arrival_time=0.0,
+                   tokens=rng.integers(0, vocab, (1, 160)))
+
+
+def test_staged_release_mid_prefill_and_handoff_cancel():
+    """A staged flow released mid-prefill leaves no slot, staging or
+    prompt residue; a flow cancelled right after its handoff frees its
+    row; the next flow through the recycled staging cache and the freed
+    row gets its exact first token (no stale KV)."""
+    be = _dual_backend(pool_slots=2, max_len=256)
+    assert be.dual_device
+    vocab, rng = _llama()[0].vocab_size, np.random.default_rng(7)
+    r1 = _staged_req(1, vocab, rng)
+    be.register(r1)
+    be.prefill_chunk(r1, 0, 128, 0.0)
+    assert 1 in be._staged and 1 in be._scratch
+    be.release([r1], 0.0)
+    assert not be._staged and 1 not in be._scratch
+    assert not be._stage_decision and 1 not in be._tok_dev_pf
+    assert len(be._free) == 2  # a staged prefill binds no slot before
+    assert be.validate() == []
+
+    r2 = _staged_req(2, vocab, rng)
+    be.register(r2)
+    be.prefill_chunk(r2, 0, 128, 0.0)
+    be.prefill_chunk(r2, 128, 32, 0.0)
+    be.prefill_done(r2, 0.0)
+    assert be.handoff_device_calls == 1 and len(be._staging_free) == 1
+    assert be.output_tokens(2) == _j_reference_tokens(r2.tokens, 1, 256)
+    be.finish(r2, 0.0)
+    assert len(be._free) == 2
+    assert be.validate() == []
+
+    r3 = _staged_req(3, vocab, rng)
+    be.register(r3)
+    be.prefill_chunk(r3, 0, 128, 0.0)  # takes the recycled staging cache
+    # one reset and one bucket: r1 ran one, r2 two
+    assert not be._staging_free and be.prefill_device_calls == 1 + 2 + 2
+    be.prefill_chunk(r3, 128, 32, 0.0)
+    be.prefill_done(r3, 0.0)
+    assert be.output_tokens(3) == _j_reference_tokens(r3.tokens, 1, 256)
+    be.release([r3], 0.0)
+    assert be.validate() == []
+
+
+def test_backpressure_colocates_second_prefill():
+    """With one staged prefill in flight at most, a second concurrent one
+    binds to the decode lane (the in-pool path), stickily."""
+    be = _dual_backend(pool_slots=3, max_len=256, prefill_inflight_max=1)
+    vocab, rng = _llama()[0].vocab_size, np.random.default_rng(11)
+    reqs = [_staged_req(i, vocab, rng) for i in (1, 2)]
+    for r in reqs:
+        be.register(r)
+    be.prefill_chunk(reqs[0], 0, 128, 0.0)
+    be.prefill_chunk(reqs[1], 0, 128, 0.0)
+    assert be._stage_decision == {1: True, 2: False}
+    assert be.colocated_backpressure == 1
+    assert len(be._free) == 2  # the co-located flow bound its slot already
+    be.prefill_chunk(reqs[0], 128, 32, 0.0)
+    be.prefill_done(reqs[0], 0.0)
+    be.prefill_chunk(reqs[1], 128, 32, 0.0)
+    assert be._stage_decision[2] is False
+    be.prefill_done(reqs[1], 0.0)
+    for r in reqs:
+        assert be.output_tokens(r.id) == _j_reference_tokens(r.tokens, 1,
+                                                             256), r.id
+    be.release(reqs, 0.0)
+    assert be.validate() == []
+
+
+def test_co_execution_rates_and_estimator():
+    """The port's contention model equals the reference's (no JAX there)."""
+    from repro.core.contention import MemoryPressureEstimator as JEst
+    from repro.core.contention import co_execution_rates as j_rates
+    from repro_torch.core.contention import (MemoryPressureEstimator,
+                                             co_execution_rates)
+    assert co_execution_rates([0.3, 0.4]) == [1.0, 1.0]  # uncontended
+    rp, rd = co_execution_rates([0.35, 0.85])
+    assert rd < rp < 1.0  # the memory-bound decode kernel suffers more
+    for utils in ([0.35, 0.85], [0.9, 0.9, 0.2], [0.5]):
+        assert co_execution_rates(utils) == j_rates(utils)
+    est, jest = MemoryPressureEstimator(), JEst()
+    for e in (est, jest):
+        e.add("prefill", 0.35)
+        e.add("decode", 0.85)
+    assert est.pressure == pytest.approx(1.20) == jest.pressure
+    assert est.active == {"prefill": 0.35, "decode": 0.85}
+    assert est.rates() == co_execution_rates([0.35, 0.85])
+    est.remove("prefill")
+    assert est.pressure == pytest.approx(0.85)
+    assert est.rates() == [1.0]
+
+
+def test_calibration_sources():
+    from repro.core.contention import CoExecutionCalibration as JCal
+    from repro_torch.core.contention import CoExecutionCalibration as Cal
+    neutral = Cal.neutral()
+    assert (neutral.prefill_slowdown, neutral.decode_slowdown) == (1.0, 1.0)
+    model = Cal.from_rates(0.35, 0.85)
+    j = JCal.from_rates(0.35, 0.85)
+    assert (model.prefill_slowdown, model.decode_slowdown) == \
+        (j.prefill_slowdown, j.decode_slowdown)
+    assert model.prefill_slowdown > 1.0 and model.decode_slowdown > 1.0
+    cal = Cal.from_backend_stats(
+        {"co_execution_decode_slowdown_measured": 1.3,
+         "prefill_bw_util": 0.35, "decode_bw_util": 0.85})
+    assert cal.decode_slowdown == pytest.approx(1.3)
+    assert cal.prefill_slowdown == pytest.approx(model.prefill_slowdown)
+    cal = Cal.from_backend_stats(
+        {"co_execution_decode_slowdown_measured": None,
+         "prefill_bw_util": 0.35, "decode_bw_util": 0.85})
+    assert cal == model
+    assert Cal.from_backend_stats({}, default=neutral) == neutral
+
+
+def test_calibration_threads_into_scheduler_neutrally():
+    """The neutral calibration keeps the sim trace bit-identical (and equal
+    to the reference's); a pessimistic decode slowdown only shrinks fused
+    plans."""
+    from repro.core.contention import CoExecutionCalibration as JCal
+    from repro_torch.core import Priority, Request
+    from repro_torch.core.contention import CoExecutionCalibration as Cal
+    cfg = t_get_config("llama3-405b")
+    rng = np.random.default_rng(47)
+    reqs = [Request(id=i, priority=Priority.PROACTIVE, prompt_len=plen,
+                    max_new_tokens=24, arrival_time=0.0,
+                    tokens=rng.integers(0, 256, (1, plen)))
+            for i, plen in enumerate([12, 14, 16])]
+    reqs.append(Request(
+        id=9, priority=Priority.REACTIVE, prompt_len=96, max_new_tokens=4,
+        arrival_time=0.004, tokens=rng.integers(0, 256, (1, 96))))
+
+    def run(engine_cls, trace, **kw):
+        eng = engine_cls(get_config("llama3-405b")
+                         if engine_cls is AgentXPUEngine else cfg,
+                         decode_segment_steps=2, **kw)
+        eng.run_trace(copy.deepcopy(trace))
+        return eng
+
+    base = run(TAgentXPUEngine, reqs)
+    assert base.last_sched.contention_cal == Cal.neutral()
+    explicit = run(TAgentXPUEngine, reqs,
+                   contention_calibration=Cal.neutral())
+    assert base.last_trace == explicit.last_trace
+    from repro.core import Priority as JP
+    from repro.core import Request as JR
+    jreqs = [JR(id=r.id, priority=JP[r.priority.name],
+                prompt_len=r.prompt_len, max_new_tokens=r.max_new_tokens,
+                arrival_time=r.arrival_time, tokens=r.tokens) for r in reqs]
+    jbase = run(AgentXPUEngine, jreqs)
+    assert base.last_trace == jbase.last_trace
+    slow = run(TAgentXPUEngine, reqs, contention_calibration=Cal(
+        prefill_slowdown=1.0, decode_slowdown=2.0))
+    jslow = run(AgentXPUEngine, jreqs, contention_calibration=JCal(
+        prefill_slowdown=1.0, decode_slowdown=2.0))
+    assert slow.last_sched.piggyback_steps <= base.last_sched.piggyback_steps
+    assert slow.last_trace == jslow.last_trace
+
+
+def test_reactive_abort_token_exact_dual_device():
+    """tests/test_preemption_real.py's dual-device case on the CPU lane: a
+    reactive arriving mid fused run truncates the plan and every flow
+    replays token-exactly: the single-lane engine's tokens (held to the
+    reference's engine by tests/test_torch_engine.py), the reactive flow
+    the reference's unscheduled ones."""
+    from repro_torch.core import Priority, Request
+    eng = _dual_engine(True, max_len=128, decode_segment_steps=2)
+    single = _dual_engine(False, max_len=128, decode_segment_steps=2)
+    cfg = eng.cfg
+    rng = np.random.default_rng(41)
+    pro = [Request(id=i, priority=Priority.PROACTIVE, prompt_len=n,
+                   max_new_tokens=24, arrival_time=0.0,
+                   tokens=rng.integers(0, cfg.vocab_size, (1, n)))
+           for i, n in enumerate([12, 14, 16])]
+    probe = TAgentXPUEngine(cfg, decode_segment_steps=2)
+    probe.run_trace(copy.deepcopy(pro))
+    steps = [t for kind, _, t in probe.last_trace if kind == "decode_step"]
+    reactive = Request(
+        id=50, priority=Priority.REACTIVE, prompt_len=12, max_new_tokens=6,
+        arrival_time=steps[int(len(steps) * 0.3)],
+        tokens=rng.integers(0, cfg.vocab_size, (1, 12)))
+    eng.serve(copy.deepcopy(pro + [reactive]))
+    single.serve(copy.deepcopy(pro + [reactive]))
+    st = eng.stats()
+    assert st["aborted_runs"] > 0 and st["staged_prefills"] > 0
+    assert eng.backend.validate() == []
+    assert eng.last_trace == single.last_trace
+    for r in pro + [reactive]:
+        assert eng.output_tokens(r.id) == single.output_tokens(r.id), r.id
+        assert len(eng.output_tokens(r.id)) == r.max_new_tokens
+    assert eng.output_tokens(50) == _j_reference_tokens(reactive.tokens, 6,
+                                                        128)
+
+
+# the reference's DualDeviceBackend on two host devices, in a subprocess
+# (its XLA flag must be set before JAX starts): tiny llama, the mixed trace
+# with one staged prefill in flight at most
+_REF_DUAL = r"""
+import json, sys
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_tiny_config
+from repro.core import Priority, Request
+from repro.core.engine import RealAgentXPUEngine
+from repro.models import init_params
+assert len(jax.devices()) == 2, jax.devices()
+flows = json.load(open(sys.argv[1]))
+cfg = get_tiny_config("llama3-405b")
+eng = RealAgentXPUEngine(cfg, init_params(cfg, jax.random.PRNGKey(0),
+                                          jnp.float32), dual_device=True,
+                         **flows["engine"])
+eng.serve([Request(id=f["id"], priority=Priority[f["priority"]],
+                   prompt_len=len(f["tokens"]), max_new_tokens=f["out"],
+                   arrival_time=f["arrival"],
+                   tokens=np.asarray([f["tokens"]])) for f in flows["flows"]])
+print(json.dumps({"tokens": {f["id"]: eng.output_tokens(f["id"])
+                             for f in flows["flows"]},
+                  "trace": eng.last_trace, "stats": eng.stats()}))
+"""
+# values that differ by nature: device names, each side's kernel route,
+# and a ratio of wall-clock times
+_DUAL_EXEMPT = {"prefill_device", "decode_device", "kernel_backend",
+                "co_execution_decode_slowdown_measured"}
+
+
+def test_staged_counters_match_reference_on_two_devices(tmp_path):
+    """The port's staged path on the CPU lane against the reference's
+    ``DualDeviceBackend`` on two host devices, on the mixed trace with
+    ``prefill_inflight_max=1`` (backpressure) and a prefix hit: tokens, the
+    kernel-completion trace and every stats() value (staged_prefills,
+    handoff_device_calls, kv_bytes_handoff, the colocated_* fallbacks among
+    them) but the device names."""
+    engine = dict(max_len=256, pool_slots=6, decode_segment_steps=4,
+                  prefill_inflight_max=1)
+    reqs = _mixed_trace()
+    spec = tmp_path / "flows.json"
+    spec.write_text(json.dumps({"engine": engine, "flows": [
+        dict(id=r.id, priority=r.priority.name, arrival=r.arrival_time,
+             out=r.max_new_tokens, tokens=[int(t) for t in r.tokens[0]])
+        for r in reqs]}))
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+    out = subprocess.run([sys.executable, "-c", _REF_DUAL, str(spec)],
+                         capture_output=True, text=True, env=env,
+                         cwd=__file__.rsplit("/", 2)[0], timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = json.loads(out.stdout.splitlines()[-1])
+    eng = _dual_engine(True, **engine)
+    eng.serve(copy.deepcopy(reqs))
+    got = {"tokens": {str(r.id): eng.output_tokens(r.id) for r in reqs},
+           "trace": json.loads(json.dumps(eng.last_trace)),
+           "stats": json.loads(json.dumps(eng.stats()))}
+    assert got["tokens"] == want["tokens"]
+    assert got["trace"] == want["trace"]
+    js, ts = want["stats"], got["stats"]
+    assert set(ts) == set(js)
+    assert {k: v for k, v in ts.items() if k not in _DUAL_EXEMPT} == \
+        {k: v for k, v in js.items() if k not in _DUAL_EXEMPT}
+    assert ts["dual_device"] and ts["staged_prefills"] > 0
+    assert ts["colocated_backpressure"] > 0 and ts["colocated_hits"] > 0
+    assert ts["handoff_device_calls"] == ts["staged_prefills"]
