@@ -5,10 +5,17 @@
 Builds the CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version at the serving and training
 paths' shapes and times both (the training flash attention forward and
-backward beside SDPA), trains ``llama3.2-3b`` at full width (f32, AdamW,
+backward beside SDPA, at llama's, qwen2-moe's and recurrentgemma's
+training shapes), trains ``llama3.2-3b`` at full width (f32, AdamW,
 remat; one step's loss and gradients through the kernels held to the plain
 path, a planted backward fault caught, one step profiled, then five steps
-through the port's launcher with the loss falling), serves
+through the port's launcher with the loss falling), trains
+``qwen2-moe-a2.7b`` (4 of 24 layers), ``recurrentgemma-9b`` (5 of 38) and
+``rwkv6-1.6b`` (all 24) at full width the same way (``[train]``: the
+depth cuts that one card's memory forces, ``TRAIN_FAMILIES``; the expert
+GEMM and the scans launched 0 times, training runs them on the plain
+path; five steps through ``train_loop.train``, or the launcher at full
+depth), serves
 ``llama3.2-3b`` at full width (bf16, random weights from
 a seeded device generator) through the port's ``RealAgentXPUEngine``,
 checks every served token against the plain path on the same card, repeats
@@ -27,11 +34,16 @@ GEMM's outputs bitwise equal to the kernel it replaced
 serves ``llama3.2-3b`` through the serving modules on the same weights --
 ``[prefix]``: 8 flows sharing a 512-token system prompt, hot (the prefix
 cache on, its hits held to a simulation's prediction, its forward tokens
-to a cold twin's minus the hit tokens) and cold; ``[faults]``: 4 flows
+to a cold twin's minus the hit tokens) and cold, then 4 flows one after
+another through a 3-slot pool, each hit pasted from the snapshot store
+after its donor's row was rebound (``prefix_promotions`` >= 1);
+``[faults]``: 4 flows
 with a transient device fault at every fifth decode check; ``[frontend]``:
 4 flows from two threads through ``ServingFrontend``, one cancelled after
 its 4th token -- each checked against the plain path, and runs
-``python -m repro_torch.launch.serve --real`` (``[launcher]``); then the
+``python -m repro_torch.launch.serve --real`` (``[launcher]``) and the
+four ``examples/*_torch.py`` files as subprocesses (``[examples]``); then
+the
 stage-decoupled serve (``[dual]``: prefill staged on a second stream of
 the card, or on a second GPU where one is visible, the KV handed off into
 the decode pool; the 8-flow trace on ``llama3.2-3b`` and 4 flows on
@@ -120,6 +132,17 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5
 # at 3e-5 and 1e-5 it swung (to 16.18 and 8.97 at the third and fourth
 # steps); at 3e-6 it fell at every step (PERF.md, PR 14)
 TRAIN_LR = 3e-6
+# the other trained families: the depth cuts that one H100's 80 GB forces at
+# 16 B a parameter (f32 weights, gradients, two Adam moments; full depth
+# would need ~229 GB for the MoE, ~167 GB for recurrentgemma), widths full,
+# and each family's learning rate for the TRAIN_STEPS steps: the largest of
+# the trials 3e-5, 1e-5 and 3e-6 whose loss fell at every step (on the
+# H100: rwkv6's rose at the third step at 3e-5; tools/smoke_phases.py lr,
+# PERF.md)
+TRAIN_FAMILIES = {MOE_ARCH: dict(num_layers=4),
+                  RG_ARCH: dict(num_layers=5, pattern_repeats=1),
+                  RWKV_ARCH: {}}
+TRAIN_FAMILY_LR = {MOE_ARCH: 3e-5, RG_ARCH: 3e-5, RWKV_ARCH: 1e-5}
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 FLASH_DROP = 64
@@ -723,7 +746,9 @@ def flash_cases(gen):
     """The training path's attention calls (q, K, V and d_out as the model
     passes them: (B, S, H, hd) transposed to (B, H, S, hd) views): llama3.2-3b
     at B 2, S 1024, 24/8 heads of 128, causal, f32 (the trainer's dtype) and
-    bf16; a 256-token window (tile skipping by the window); S 40 at hd 32."""
+    bf16; a 256-token window (tile skipping by the window); S 40 at hd 32;
+    qwen2-moe-a2.7b's 16/16 heads of 128 and recurrentgemma-9b's 16/1 heads
+    of 256 with its 2048 window, f32."""
     cases = []
     for name, B, S, Hq, Hkv, hd, dtype, window in [
             ("f32 B=2 S=1024 24/8 hd128 causal", 2, 1024, 24, 8, 128,
@@ -733,7 +758,13 @@ def flash_cases(gen):
             ("f32 B=2 S=1024 24/8 hd128 window=256", 2, 1024, 24, 8, 128,
              torch.float32, 256),
             ("f32 B=1 S=40 4/2 hd32 causal", 1, 40, 4, 2, 32, torch.float32,
-             None)]:
+             None),
+            # the trained families' attention layers: qwen2-moe-a2.7b,
+            # and recurrentgemma-9b's local attention (its window passes S)
+            ("f32 B=2 S=1024 16/16 hd128 causal", 2, 1024, 16, 16, 128,
+             torch.float32, None),
+            ("f32 B=2 S=1024 16/1 hd256 window=2048", 2, 1024, 16, 1, 256,
+             torch.float32, 2048)]:
         def mk(H):
             return torch.randn((B, S, H, hd), generator=gen,
                                device="cuda").to(dtype).transpose(1, 2)
@@ -1073,37 +1104,33 @@ def _dropped_dkdv(real):
     return faulty
 
 
-def train_phase(smi):
-    """llama3.2-3b at full width in f32 (random weights, seed SEED), a
-    TRAIN_BATCH x TRAIN_SEQ batch of the synthetic corpus, remat on, f32
-    matmuls at "highest".  (a) One step's loss and gradients at fixed
-    weights and batch through the kernels against the plain path, and with
-    a planted backward fault, then one more under the profiler; (b)
-    TRAIN_STEPS AdamW steps at TRAIN_LR through the port's launcher
-    (``repro_torch.launch.train``), whose loss must fall,
-    with every kernel launch counted from 0: per step 2 forward launches a
-    layer (the forward and remat's recompute) and 1 backward."""
-    from repro_torch.configs import get_config
+def _train_batch():
+    """The fixed TRAIN_BATCH x TRAIN_SEQ batch of the synthetic corpus
+    (the launcher's first batch at seed SEED), on the card."""
     from repro_torch.data.pipeline import PipelineConfig, batches
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train as launcher
-    from repro_torch.models import init_params
-    from repro_torch.train.train_loop import loss_and_grads
-    torch.set_float32_matmul_precision("highest")
-    cfg = get_config(ARCH)
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
     batch = next(batches(PipelineConfig(batch_size=TRAIN_BATCH,
                                         seq_len=TRAIN_SEQ, vocab_size=259,
                                         seed=SEED)))
-    toks = torch.from_numpy(batch["tokens"]).cuda()
-    n_params = sum(p.numel() for p in params.parameters())
-    log(f"[train] {ARCH}: {cfg.num_layers} layers d_model {cfg.d_model} "
-        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim} d_ff "
-        f"{cfg.d_ff} vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
-        f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, init "
-        f"{time.perf_counter() - t0:.1f} s")
-    # (a) one step at fixed weights and batch: plain, kernels, faulty
+    return torch.from_numpy(batch["tokens"]).cuda()
+
+
+def _attn_layers(cfg):
+    from repro_torch.models import layout
+    head, pattern, repeats, tail = layout(cfg)
+    return (head + pattern * repeats + tail).count("attn")
+
+
+def train_step_check(cfg, params, toks, label, fault):
+    """One step at fixed weights and batch through the kernels against the
+    plain path: the loss to TRAIN_LOSS_REL, every gradient leaf to
+    TRAIN_GRAD_REL relative L2, exact launches (2 ``flash_attention`` an
+    attention layer, the forward and remat's recompute, 1
+    ``flash_attention_bwd``, every other kernel 0); with ``fault``, a
+    planted dK/dV tile dropped in every attention layer must push the
+    gradient gap past the limit.  Returns the step's numbers and its
+    launches per step."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.train_loop import loss_and_grads
     t0 = time.perf_counter()
     loss_p, _, want = loss_and_grads(cfg, params, toks,
                                      kernel_backend="plain")
@@ -1113,43 +1140,111 @@ def train_phase(smi):
     ops.reset_launches()
     loss_c, gaps = _grad_gaps(cfg, params, toks, want)
     step_launches = dict(ops.LAUNCHES)
-    real = ops.flash_attention_bwd
-    ops.flash_attention_bwd = _dropped_dkdv(real)
-    try:
-        loss_f, fault_gaps = _grad_gaps(cfg, params, toks, want)
-    finally:
-        ops.flash_attention_bwd = real
+    loss_f, fault_gaps = None, None
+    if fault:
+        real = ops.flash_attention_bwd
+        ops.flash_attention_bwd = _dropped_dkdv(real)
+        try:
+            loss_f, fault_gaps = _grad_gaps(cfg, params, toks, want)
+        finally:
+            ops.flash_attention_bwd = real
     del want
-    _release()
-    profile = profile_train_step(cfg, params, toks)
-    del params
     _release()
     loss_gap = abs(loss_c.item() - loss_p.item()) / abs(loss_p.item())
     worst = max(gaps, key=gaps.get)
-    fault_worst = max(fault_gaps, key=fault_gaps.get)
-    log(f"[check] {ARCH} train step, kernels vs plain: loss {loss_c.item():.6f}"
-        f" vs {loss_p.item():.6f} (relative gap {loss_gap:.2e}, limit "
-        f"{TRAIN_LOSS_REL}); gradient relative L2 gap, largest {gaps[worst]:.2e}"
-        f" ({worst}), limit {TRAIN_GRAD_REL}; with one dK/dV tile dropped in "
-        f"every layer {fault_gaps[fault_worst]:.2e} ({fault_worst}, "
-        f"{fault_gaps[fault_worst] / TRAIN_GRAD_REL:.1f} x the limit); launches "
-        f"{step_launches}; {time.perf_counter() - t0:.1f} s")
-    per_step = {"flash_attention": 2 * cfg.num_layers,
-                "flash_attention_bwd": cfg.num_layers}
+    out = dict(loss_kernel=loss_c.item(), loss_plain=loss_p.item(),
+               loss_rel_gap=loss_gap, grad_rel_l2_max=gaps[worst],
+               grad_rel_l2_max_leaf=worst, launches=step_launches)
+    msg = ""
+    if fault:
+        fault_worst = max(fault_gaps, key=fault_gaps.get)
+        out.update(faulty_grad_rel_l2_max=fault_gaps[fault_worst],
+                   faulty_loss=loss_f.item())
+        msg = (f"; with one dK/dV tile dropped in every attention layer "
+               f"{fault_gaps[fault_worst]:.2e} ({fault_worst}, "
+               f"{fault_gaps[fault_worst] / TRAIN_GRAD_REL:.1f} x the limit)")
+    log(f"[check] {label} train step, kernels vs plain: loss "
+        f"{loss_c.item():.6f} vs {loss_p.item():.6f} (relative gap "
+        f"{loss_gap:.2e}, limit {TRAIN_LOSS_REL}); gradient relative L2 "
+        f"gap, largest {gaps[worst]:.2e} ({worst}), limit {TRAIN_GRAD_REL}"
+        f"{msg}; launches {step_launches}; {time.perf_counter() - t0:.1f} s")
+    n_attn = _attn_layers(cfg)
+    per_step = {"flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
     want_launches = {k: per_step.get(k, 0) for k in ops.LAUNCHES}
     if step_launches != want_launches:
-        raise AssertionError(f"train step launches {step_launches} != "
-                             f"{want_launches}")
+        raise AssertionError(f"{label} train step launches {step_launches} "
+                             f"!= {want_launches}")
     if not loss_gap <= TRAIN_LOSS_REL:
-        raise AssertionError(f"train step loss gap {loss_gap} > "
+        raise AssertionError(f"{label} train step loss gap {loss_gap} > "
                              f"{TRAIN_LOSS_REL}")
     if not gaps[worst] <= TRAIN_GRAD_REL:
-        raise AssertionError(f"train step gradient {worst}: relative L2 gap "
-                             f"{gaps[worst]} > {TRAIN_GRAD_REL}")
-    if not fault_gaps[fault_worst] > TRAIN_GRAD_REL:
+        raise AssertionError(f"{label} train step gradient {worst}: "
+                             f"relative L2 gap {gaps[worst]} > "
+                             f"{TRAIN_GRAD_REL}")
+    if fault and not out["faulty_grad_rel_l2_max"] > TRAIN_GRAD_REL:
         raise AssertionError(
-            f"the gradient limit {TRAIN_GRAD_REL} would not catch a dropped "
-            f"dK/dV tile ({fault_gaps[fault_worst]})")
+            f"{label}: the gradient limit {TRAIN_GRAD_REL} would not catch "
+            f"a dropped dK/dV tile ({out['faulty_grad_rel_l2_max']})")
+    return out, per_step
+
+
+def train_steps_report(label, hist, launches, per_step, wall, peak, smi):
+    """Log and check TRAIN_STEPS logged steps: the launches of every step
+    as ``per_step``, a finite loss that falls.  Returns (losses, step
+    seconds, their median after the first, tokens/s)."""
+    from repro_torch.kernels import ops
+    losses = [h["loss"] for h in hist]
+    ends = [h["elapsed"] for h in hist]
+    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
+    steady = statistics.median(step_s[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
+    log(f"[train] {label} {TRAIN_STEPS} steps: losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; step s " + ", ".join(f"{x:.3f}" for x in step_s)
+        + f" (median after the first {steady:.3f} s, {tok_s:.0f} tok/s); "
+        f"peak memory {peak:.2f} GB; launches {launches}; phase {wall:.1f} s"
+        f"; {smi}")
+    want = {k: TRAIN_STEPS * per_step.get(k, 0) for k in ops.LAUNCHES}
+    if launches != want:
+        raise AssertionError(f"{label} training launches {launches} != "
+                             f"{want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall over "
+                             f"{TRAIN_STEPS} steps: {losses}")
+    return losses, step_s, steady, tok_s
+
+
+def train_phase(smi):
+    """llama3.2-3b at full width in f32 (random weights, seed SEED), a
+    TRAIN_BATCH x TRAIN_SEQ batch of the synthetic corpus, remat on, f32
+    matmuls at "highest".  (a) One step's loss and gradients at fixed
+    weights and batch through the kernels against the plain path, and with
+    a planted backward fault (train_step_check), then one more under the
+    profiler; (b) TRAIN_STEPS AdamW steps at TRAIN_LR through the port's
+    launcher (``repro_torch.launch.train``), whose loss must fall,
+    with every kernel launch counted from 0: per step 2 forward launches a
+    layer (the forward and remat's recompute) and 1 backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    torch.set_float32_matmul_precision("highest")
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    toks = _train_batch()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[train] {ARCH}: {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.head_dim} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params "
+        f"f32, batch {TRAIN_BATCH} x {TRAIN_SEQ}, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    # (a) one step at fixed weights and batch: plain, kernels, faulty
+    step_check, per_step = train_step_check(cfg, params, toks, ARCH,
+                                            fault=True)
+    profile = profile_train_step(cfg, params, toks)
+    del params
+    _release()
     # (b) TRAIN_STEPS steps through the launcher
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()  # count the training path's launches only
@@ -1162,35 +1257,115 @@ def train_phase(smi):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    losses = [h["loss"] for h in hist]
-    ends = [h["elapsed"] for h in hist]
-    step_s = [b - a for a, b in zip([0.0] + ends, ends)]
-    steady = statistics.median(step_s[1:])
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
-    log(f"[train] {ARCH} {TRAIN_STEPS} steps: losses "
-        + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; step s " + ", ".join(f"{x:.3f}" for x in step_s)
-        + f" (median after the first {steady:.3f} s, {tok_s:.0f} tok/s); "
-        f"peak memory {peak:.2f} GB; launches {launches}; phase {wall:.1f} s "
-        f"with init; {smi}")
-    want_launches = {k: TRAIN_STEPS * per_step.get(k, 0) for k in ops.LAUNCHES}
-    if launches != want_launches:
-        raise AssertionError(f"training launches {launches} != "
-                             f"{want_launches}")
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS} "
-                             f"steps: {losses}")
+    losses, step_s, steady, tok_s = train_steps_report(
+        f"{ARCH} (launcher)", hist, launches, per_step, wall, peak, smi)
     _release()
     return dict(arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                 steps=TRAIN_STEPS, losses=losses, step_s=step_s,
                 median_step_s=steady, tokens_per_s=tok_s, peak_mem_gb=peak,
-                launches=launches, step_check=dict(
-                    loss_kernel=loss_c.item(), loss_plain=loss_p.item(),
-                    loss_rel_gap=loss_gap, grad_rel_l2_max=gaps[worst],
-                    grad_rel_l2_max_leaf=worst,
-                    faulty_grad_rel_l2_max=fault_gaps[fault_worst],
-                    faulty_loss=loss_f.item(), launches=step_launches),
-                profile=profile)
+                launches=launches, step_check=step_check, profile=profile)
+
+
+def _param_counts(cfg, full_cfg, params):
+    """(parameters of ``params``, parameters of ``full_cfg`` at full
+    depth): each layer kind's count read from the module's leaves (a
+    stacked leaf over its repeats), so the figure is init_params's own."""
+    from repro_torch.models import layout
+    head, pattern, repeats, tail = layout(cfg)
+    kinds = {"head": head, "blocks": pattern, "tail": tail}
+    per_layer, other = {}, 0
+    for name, p in params.state_dict().items():
+        sec, *rest = name.split(".")
+        if sec not in kinds:
+            other += p.numel()
+            continue
+        n = p.numel() // (repeats if sec == "blocks" else 1)
+        kind = kinds[sec][int(rest[0])]
+        per_layer[(sec, rest[0])] = per_layer.get((sec, rest[0]), 0) + n
+    by_kind = {}
+    for (sec, i), n in per_layer.items():
+        by_kind.setdefault(kinds[sec][int(i)], set()).add(n)
+    assert all(len(v) == 1 for v in by_kind.values()), by_kind
+    by_kind = {k: v.pop() for k, v in by_kind.items()}
+    fh, fp, fr, ft = layout(full_cfg)
+    full = other + sum(by_kind[k] for k in fh + fp * fr + ft)
+    return sum(p.numel() for p in params.parameters()), full
+
+
+def family_train_phase(arch, smi, lr=None):
+    """[train] for ``arch`` (one of TRAIN_FAMILIES) at full width in f32,
+    cut in depth where TRAIN_FAMILIES says one H100's 80 GB forces it: one
+    step at fixed weights and batch through the kernels against the plain
+    path (train_step_check; the planted dK/dV fault where the family has
+    attention), then TRAIN_STEPS AdamW steps at ``lr`` (TRAIN_FAMILY_LR by
+    default) whose loss must fall -- at full depth through the port's
+    launcher, cut in depth through ``train_loop.train``, the function the
+    launcher calls -- with exact launches: ``flash_attention`` 2 and
+    ``flash_attention_bwd`` 1 an attention layer and step, ``moe_gemm`` and
+    the scans 0 (training runs them on the plain path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import train
+    torch.set_float32_matmul_precision("highest")
+    lr = TRAIN_FAMILY_LR[arch] if lr is None else lr
+    full = get_config(arch)
+    cut = TRAIN_FAMILIES[arch]
+    cfg = full.with_overrides(**cut) if cut else full
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    n_params, n_full = _param_counts(cfg, full, params)
+    n_attn = _attn_layers(cfg)
+    label = arch + (f" ({cfg.num_layers} of {full.num_layers} layers)"
+                    if cut else "")
+    log(f"[train] {label}: cut {cut or 'none'} (layers "
+        f"{cfg.num_layers}, {n_attn} attention), d_model {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params f32, "
+        f"{16 * n_params / 1e9:.1f} GB of weights, gradients and two Adam "
+        f"moments at 16 B a parameter (full depth {n_full / 1e9:.3f} B, "
+        f"{16 * n_full / 1e9:.1f} GB); batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"lr {lr}; init {time.perf_counter() - t0:.1f} s")
+    toks = _train_batch()
+    step_check, per_step = train_step_check(cfg, params, toks, label,
+                                            fault=n_attn > 0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if cut:
+        data = batches(PipelineConfig(batch_size=TRAIN_BATCH,
+                                      seq_len=TRAIN_SEQ, vocab_size=259,
+                                      seed=SEED))
+        opt = AdamWConfig(lr=lr, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                          total_steps=TRAIN_STEPS)
+        params, _, hist = train(cfg, params, data, opt, TRAIN_STEPS,
+                                log_every=1, log_fn=log,
+                                kernel_backend="cuda")
+        how = "train_loop.train"
+    else:
+        del params
+        _release()
+        hist = launcher.main(["--arch", arch, "--steps", str(TRAIN_STEPS),
+                              "--batch", str(TRAIN_BATCH), "--seq",
+                              str(TRAIN_SEQ), "--lr", str(lr),
+                              "--log-every", "1", "--seed", str(SEED)])
+        how = "the launcher"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses, step_s, steady, tok_s = train_steps_report(
+        f"{label} through {how}", hist, launches, per_step, wall, peak, smi)
+    params = None
+    _release()
+    return dict(arch=arch, cut=cut, layers=cfg.num_layers,
+                attention_layers=n_attn, params=n_params,
+                full_depth_params=n_full, lr=lr, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, steps=TRAIN_STEPS, via=how, losses=losses,
+                step_s=step_s, median_step_s=steady, tokens_per_s=tok_s,
+                peak_mem_gb=peak, launches=launches, step_check=step_check)
 
 
 # -- serve -------------------------------------------------------------------
@@ -1851,6 +2026,127 @@ def prefix_phase(cfg, params):
     return out
 
 
+# the snapshot store's serve: flows sharing the system prompt one after
+# another through a pool capped at 3 slots, each hit pasted from a promoted
+# snapshot.  Store rows count toward the cap when a flow arrives (live rows
+# plus store entries), which the simulation's SimBackend does not model: at
+# a cap of 2 the fourth flow's arrival evicts the unpinned prefixes and
+# misses the hit the simulation predicts, so the cap leaves room for the two
+# entries that flow finds
+PREFIX_STORE_FLOWS, PREFIX_STORE_OUT, PREFIX_STORE_SLOTS = 4, 16, 3
+
+
+def prefix_store_flows(cfg, rng):
+    """PREFIX_STORE_FLOWS proactive flows, each prompt a shared
+    PREFIX_SYSTEM-token system prompt (drawn once) and a 64-512-token tail,
+    arriving one after another: each after the one before completes on the
+    scheduler's clock, as a simulation-only run of the earlier flows with
+    the prefix cache off (the slower serve) and the pool capped at
+    PREFIX_STORE_SLOTS finds it.  Each flow after the first binds the
+    lowest free slot, the one the flow before it held and donated its
+    prefix from, so the donor is promoted to the snapshot store first and
+    the hit is pasted from there.
+    Returns the flows and the prediction of a simulation-only run of them
+    with the prefix cache on (``SimBackend(prefix_cache=True,
+    max_len=MAX_LEN)``, which makes the real engine's decisions)."""
+    from repro_torch.core import AgentXPUEngine
+    from repro_torch.core.backend import SimBackend
+
+    def sim(flows, hot):
+        eng = AgentXPUEngine(cfg, pool_slots_max=PREFIX_STORE_SLOTS)
+        eng.backend = SimBackend(prefix_cache=hot, max_len=MAX_LEN)
+        return eng, eng.run_trace(_requests(flows))
+    system = rng.integers(0, cfg.vocab_size, (1, PREFIX_SYSTEM))
+    lens = rng.integers(64, 513, size=PREFIX_STORE_FLOWS)
+    flows = [dict(id=i, arrival=0.0, reactive=False, late=False,
+                  out=PREFIX_STORE_OUT, tokens=np.concatenate(
+                      [system, rng.integers(0, cfg.vocab_size,
+                                            (1, int(lens[i])))], axis=1))
+             for i in range(PREFIX_STORE_FLOWS)]
+    for k in range(1, len(flows)):
+        _, m = sim(flows[:k], hot=False)
+        flows[k]["arrival"] = max(r.finish_t for r in m.completed) + 0.01
+    eng, _ = sim(flows, hot=True)
+    st = eng.backend.stats()
+    return flows, {k: st[k] for k in ("prefix_hits", "prefix_hit_tokens")}
+
+
+def prefix_store_phase(cfg, params):
+    """[prefix] snapshot store: the flows of prefix_store_flows served hot
+    and cold with ``pool_slots_max=PREFIX_STORE_SLOTS``.  The hot serve
+    must promote its donors (``prefix_promotions`` >= 1: ``_promote_donor``
+    snapshots the rebound row, and ``kvcache.paste_prefix`` serves each hit
+    from the store), its hits must equal the simulation's prediction with
+    no fallback, its forward tokens the cold serve's minus the hit tokens,
+    every token within LOGIT_MARGIN of the plain path (which replays each
+    pasted prefix as one ``extend``), and every slot must be free at exit
+    in both serves."""
+    label = f"{cfg.name} prefix store"
+    flows, want = prefix_store_flows(cfg, np.random.default_rng(SEED + 3))
+    if want["prefix_hits"] != len(flows) - 1:
+        raise AssertionError(f"[{label}] the simulation predicts "
+                             f"{want['prefix_hits']} hits, not one for "
+                             f"every flow after the first")
+    log(f"[prefix] {label}: {len(flows)} flows one after another (arrivals "
+        f"{[round(f['arrival'], 4) for f in flows]} s on the scheduler's "
+        f"clock) through a {PREFIX_STORE_SLOTS}-slot pool, a "
+        f"{PREFIX_SYSTEM}-token system prompt + tails of "
+        f"{[f['tokens'].shape[1] - PREFIX_SYSTEM for f in flows]} tokens, "
+        f"simulation predicts {want}")
+    runs = {}
+    for hot in (False, True):
+        runs[hot] = serve(cfg, params, flows, device="cuda",
+                          dtype=torch.bfloat16, prefix_cache=hot,
+                          pool_slots_max=PREFIX_STORE_SLOTS)
+        eng, metrics, wall, ttft, launches, chunks = runs[hot]
+        check_serve(cfg, eng, metrics, flows, launches,
+                    label + ("" if hot else " cold"), need_abort=False)
+        _free_at_exit(eng, label)
+    (eng, m, wall, ttft, launches, chunks), cold = runs[True], runs[False]
+    st, st_cold = eng.stats(), cold[0].stats()
+    got = {k: st[k] for k in want}
+    if got != want or st["prefix_fallbacks"]:
+        raise AssertionError(f"[{label}] hits {got} (simulation {want}), "
+                             f"{st['prefix_fallbacks']} fallbacks")
+    if not st["prefix_promotions"] >= 1:
+        raise AssertionError(f"[{label}] no donor was promoted to the "
+                             f"snapshot store: {st['prefix_promotions']}")
+    if st["prefill_forward_tokens"] != st_cold["prefill_forward_tokens"] \
+            - st["prefix_hit_tokens"]:
+        raise AssertionError(
+            f"[{label}] {st['prefill_forward_tokens']} forward tokens, not "
+            f"the cold serve's {st_cold['prefill_forward_tokens']} minus "
+            f"{st['prefix_hit_tokens']} hit tokens")
+    t0 = time.perf_counter()
+    exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
+                                      dtype=torch.bfloat16)
+    log(f"[prefix] {label}: hot {wall:.3f} s wall, cold {cold[2]:.3f} s; "
+        f"{st['pool_slots']} pool slots; hits {got['prefix_hits']} "
+        f"({got['prefix_hit_tokens']} tokens), {st['prefix_promotions']} "
+        f"donors promoted, {st['prefix_store_entries']} store entries at "
+        f"exit, {st['kv_bytes_prefix_copied']} KV bytes in "
+        f"{st['prefix_copy_device_calls']} pastes, forward tokens "
+        f"{st['prefill_forward_tokens']} hot / "
+        f"{st_cold['prefill_forward_tokens']} cold; launches {launches}")
+    log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
+        f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
+        f"(margin {LOGIT_MARGIN}), {time.perf_counter() - t0:.1f} s; "
+        f"prefill replayed as {chunks}")
+    out = dict(flows=len(flows), wall_s=wall, cold_wall_s=cold[2],
+               launches=launches, cold_launches=cold[4], plain_exact=exact,
+               plain_total=total, plain_worst_gap=worst,
+               **{k: st[k] for k in ("prefix_hits", "prefix_hit_tokens",
+                                     "prefix_fallbacks", "prefix_promotions",
+                                     "prefix_store_entries",
+                                     "kv_bytes_prefix_copied",
+                                     "prefix_copy_device_calls",
+                                     "prefill_forward_tokens")},
+               cold_prefill_forward_tokens=st_cold["prefill_forward_tokens"])
+    del eng, cold, runs
+    _release()
+    return out
+
+
 def faults_phase(cfg, params):
     """[faults]: 4 flows with a transient device fault at every fifth
     decode check (the reference's ``faulty`` mode of the reactive
@@ -2008,6 +2304,105 @@ def launcher_phase():
         f"{summ['prefix_hit_tokens']} (hit rate "
         f"{summ['prefix_hit_rate']:.4f})")
     return dict(wall_s=wall, requests=n, **summ)
+
+
+# the examples over the port, each run as a user runs it, at tiny size with
+# few steps: (file, arguments); all four at once, each its own process
+EXAMPLE_RUNS = [
+    ("quickstart_torch", ["--steps", "40", "--batch", "4", "--seq", "96"]),
+    ("serve_agentic_torch", []),
+    ("mixed_workload_demo_torch", []),
+    ("train_tiny_torch", ["--arch", MOE_ARCH, "--steps", "5",
+                          "--log-every", "1"])]
+
+
+def _report_ints(out, label):
+    """The integers of the report line that starts with ``label``."""
+    import re
+    line = next(ln for ln in out.splitlines() if ln.startswith(label))
+    return [int(x) for x in re.findall(r"(?<![\d.])\d+(?![\d.])", line)]
+
+
+def examples_phase():
+    """[examples]: the four ``examples/*_torch.py`` files on the card, each
+    a subprocess with its defaults (``--device cuda``, ``--kernel-backend
+    cuda``) at tiny size; each must exit 0.  ``serve_agentic_torch``'s
+    fused default must keep its decode device calls and host syncs below
+    its decode tokens, with every slot free at exit; ``train_tiny_torch``
+    writes its checkpoint to a temporary directory."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, ends, files = {}, {}, []
+        try:
+            for name, args in EXAMPLE_RUNS:
+                if name == "train_tiny_torch":
+                    args = args + ["--ckpt-dir", os.path.join(tmp, "ck")]
+                files += [open(os.path.join(tmp, name + ext), "w")
+                          for ext in (".out", ".err")]
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.join("examples", f"{name}.py"),
+                     *args], stdout=files[-2], stderr=files[-1], env=env,
+                    cwd=root)
+            while len(ends) < len(procs):
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"[examples] still running after "
+                                         f"300 s: {set(procs) - set(ends)}")
+                for name, proc in procs.items():
+                    if name not in ends and proc.poll() is not None:
+                        ends[name] = time.perf_counter() - t0
+                time.sleep(0.1)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+            for f in files:
+                f.close()
+        outs = {}
+        for name, proc in procs.items():
+            with open(os.path.join(tmp, name + ".out")) as f_out, \
+                    open(os.path.join(tmp, name + ".err")) as f_err:
+                outs[name] = (proc.returncode, f_out.read(), f_err.read(),
+                              ends[name])
+    stats = {}
+    for name, (rc, out, err, wall) in outs.items():
+        last = [ln for ln in out.splitlines() if ln.strip()][-1:]
+        log(f"[examples] {name}: exit {rc} after {wall:.1f} s; last line "
+            f"{last}")
+        if rc != 0:
+            raise AssertionError(f"[examples] {name} exit {rc}: "
+                                 f"{err[-2000:]}")
+        stats[name] = dict(exit=rc, wall_s=wall)
+    out = outs["serve_agentic_torch"][1]
+    calls, tokens, slots = _report_ints(out, "decode device calls")
+    syncs = _report_ints(out, "host syncs")[0]
+    retired = _report_ints(out, "retired")
+    log("[examples] serve_agentic_torch report: " + "; ".join(
+        ln.strip() for ln in out.splitlines()
+        if ln.startswith(("retired", "decode device calls", "host syncs",
+                          "fused decode steps", "prefix reuse",
+                          "prefix KV copied", "kv pool", "fault isolation"))))
+    if not (calls < tokens and syncs < tokens) or retired[0] != retired[1] \
+            or f"{slots}/{slots} slots free at exit" not in out:
+        raise AssertionError(f"[examples] serve_agentic_torch: {calls} decode "
+                             f"device calls, {syncs} host syncs for {tokens} "
+                             f"decode tokens; retired {retired}")
+    stats["serve_agentic_torch"].update(decode_device_calls=calls,
+                                        decode_tokens=tokens,
+                                        host_syncs=syncs)
+    qs = outs["quickstart_torch"][1]
+    first, last = (float(x) for x in next(
+        ln for ln in qs.splitlines() if ln.startswith("loss:")
+    )[len("loss:"):].split("->"))
+    if not last < first:
+        raise AssertionError(f"[examples] quickstart_torch loss {first} -> "
+                             f"{last}")
+    stats["quickstart_torch"].update(loss_first=first, loss_last=last)
+    log(f"[examples] all four exit 0 in {time.perf_counter() - t0:.1f} s")
+    return stats
 
 
 # -- stage-decoupled serving and the reference's baselines ----------------------
@@ -2343,6 +2738,7 @@ def serve_phase():
     del eng8
     _release()
     serve_stats["prefix"] = prefix_phase(cfg, params)
+    serve_stats["prefix_store"] = prefix_store_phase(cfg, params)
     serve_stats["faults"] = faults_phase(cfg, params)
     serve_stats["frontend"] = frontend_phase(cfg, params)
     serve_stats["profile"] = profile_serving(cfg, params)
@@ -2430,10 +2826,16 @@ def main():
     phase_done("kernels")
     train_stats = train_phase(smi)
     phase_done(f"{ARCH} train")
+    family_train = {}
+    for arch in TRAIN_FAMILIES:
+        family_train[arch] = family_train_phase(arch, smi)
+        phase_done(f"{arch} train")
     serve_stats = serve_phase()
     phase_done(ARCH)
     launcher = launcher_phase()
     phase_done("launcher")
+    examples = examples_phase()
+    phase_done("examples")
     other = {}
     for arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):
         _release()  # the previous path's weights and pools
@@ -2441,10 +2843,16 @@ def main():
         phase_done(arch)
     # launches of each kernel in the main-path runs, each counted from 0
     by_path = {f"{ARCH} train": train_stats["launches"],
+               **{f"{a} train": st["launches"]
+                  for a, st in family_train.items()},
                f"{ARCH} bf16": serve_stats["launches"],
                f"{ARCH} int8": serve_stats["int8"]["launches"],
                f"{ARCH} prefix": serve_stats["prefix"]["launches"],
                f"{ARCH} prefix cold": serve_stats["prefix"]["cold_launches"],
+               f"{ARCH} prefix store":
+                   serve_stats["prefix_store"]["launches"],
+               f"{ARCH} prefix store cold":
+                   serve_stats["prefix_store"]["cold_launches"],
                f"{ARCH} faults": serve_stats["faults"]["launches"],
                f"{ARCH} frontend": serve_stats["frontend"]["launches"],
                **{f"{a} dual {lane} {run}": st["dual"][lane][run]["launches"]
@@ -2493,6 +2901,9 @@ def main():
                 launches_by_path={p: n[b] for p, n in by_path.items()},
                 **kernel_rows[(b, headline[k])])
     log(json.dumps({"train": train_stats}))
+    for arch, st in family_train.items():
+        log(json.dumps({f"train {arch}": st}))
+    log(json.dumps({"examples": examples}))
     log(json.dumps({"serve": serve_stats}))
     log(json.dumps({"launcher": launcher}))
     for arch, st in other.items():

@@ -16,6 +16,15 @@ Differences from the reference, all forced by the frameworks:
 * The combine is a fixed-order sum over the K routed copies of each token
   (``(T, K, d).sum(1)``), not ``index_add_``, whose CUDA atomics would
   make the sum's order, and so the served tokens, vary from run to run.
+
+In training (``kernel_backend="plain"``, as ``transformer.forward`` calls
+it) autograd differentiates the same code: gradients reach the router
+through the renormalised ``top_p`` and the aux loss's mean probabilities;
+the expert counts and the routing itself carry none, as in the
+reference.  On the card the backward of the dispatch gather
+(``x[tok_idx]``) accumulates with atomics, so a gradient may differ run to
+run in its last bits; remat's recompute routes as the forward did, from
+the same saved layer input.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """Recurrent sequence mixers: RWKV-6 (Finch) and RG-LRU (Griffin).
 
-PyTorch port of ``repro.models.ssm`` for serving (prefill chunks and
-decode steps against a slot-pool cache).  ``kernel_backend="plain"`` runs
+PyTorch port of ``repro.models.ssm``: serving (prefill chunks and decode
+steps against a slot-pool cache) and training (whole sequences from zero
+state).  ``kernel_backend="plain"`` runs
 the reference's model math: the RG-LRU recurrence as a log-depth scan over
 the ``(a, b)`` pairs (what ``jax.lax.associative_scan`` computes) and WKV6
 in the stable pairwise log-space form, chunks of 32, with single-step forms
@@ -13,6 +14,12 @@ States are read from the layer's cache views and written back in place,
 only into active rows (``store_rows``): a bound but inactive row (mid
 prefill, or preempted) keeps its state, as the reference's
 ``kvcache.select_rows`` keeps it.  States are carried in f32.
+
+With ``st=None`` each block takes the reference's training form: the whole
+sequence from zero state (zero token shifts, zero WKV state, ``h0 = 0`` and
+zero conv history), always on the plain scans, whatever the kernel backend
+(the kernels have no backward), and writes no state, so nothing that
+autograd tracks is changed in place.
 """
 from __future__ import annotations
 
@@ -104,12 +111,15 @@ def _token_shift(x, shift):
 def rwkv6_block(x, p, cfg, st, ctx):
     """RWKV6 time-mix (token shift, ddlerp decay, WKV, group norm, gate,
     out) of a (B, S, d) chunk against layer state ``st`` (``shift_tm``,
-    ``wkv``), which it advances in place.  S == 1 is a decode step."""
+    ``wkv``), which it advances in place.  S == 1 is a decode step;
+    ``st=None`` the training form (chunked WKV at ``ctx["ssm_chunk"]`` from
+    zero state)."""
     D = cfg.ssm_head_dim
     d = cfg.d_model
     H = d // D
     B, S, _ = x.shape
-    prev = _token_shift(x, st["shift_tm"])
+    train = st is None
+    prev = _token_shift(x, x.new_zeros((B, d)) if train else st["shift_tm"])
 
     def mix(mu):
         return x + (prev - x) * mu  # lerp toward previous token
@@ -128,7 +138,12 @@ def rwkv6_block(x, p, cfg, st, ctx):
         return t.reshape(B, S, H, D).transpose(1, 2)
 
     r_, k_, v_, wl_ = hsplit(r), hsplit(k), hsplit(v), hsplit(w_log)
-    if ctx["kernel_backend"] == "cuda":
+    if train:
+        o, _ = rwkv6_scan_chunked(
+            r_, k_, v_, wl_, p["u"],
+            torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device),
+            chunk=ctx["ssm_chunk"])
+    elif ctx["kernel_backend"] == "cuda":
         o, new_state = kops.rwkv6_scan(r_, k_, v_, wl_, p["u"][:, None],
                                        state0=st["wkv"])
     elif S == 1:
@@ -138,9 +153,10 @@ def rwkv6_block(x, p, cfg, st, ctx):
     else:
         o, new_state = rwkv6_scan_chunked(r_, k_, v_, wl_, p["u"], st["wkv"],
                                           chunk=ctx["ssm_chunk"])
-    active = ctx.get("active")
-    store_rows(st["wkv"], new_state, active)
-    store_rows(st["shift_tm"], x[:, -1], active)
+    if not train:
+        active = ctx.get("active")
+        store_rows(st["wkv"], new_state, active)
+        store_rows(st["shift_tm"], x[:, -1], active)
     # per-head group norm
     o32 = o.transpose(1, 2).float()  # (B, S, H, D)
     o32 = (o32 - o32.mean(-1, keepdim=True)) * torch.rsqrt(
@@ -152,13 +168,17 @@ def rwkv6_block(x, p, cfg, st, ctx):
 
 def rwkv6_channel_mix(x, p, st, ctx):
     """RWKV channel-mix FFN of a (B, S, d) chunk with its own token shift
-    (``shift_cm``, advanced in place)."""
-    prev = _token_shift(x, st["shift_cm"])
+    (``shift_cm``, advanced in place; ``st=None``: from a zero shift)."""
+    if st is None:
+        prev = _token_shift(x, x.new_zeros((x.shape[0], x.shape[2])))
+    else:
+        prev = _token_shift(x, st["shift_cm"])
     xk = x + (prev - x) * p["mu"]
     k = torch.square(torch.relu(xk @ p["wk_cm"]))
     kv = k @ p["wv_cm"]
     r = torch.sigmoid(xk @ p["wr_cm"])
-    store_rows(st["shift_cm"], x[:, -1], ctx.get("active"))
+    if st is not None:
+        store_rows(st["shift_cm"], x[:, -1], ctx.get("active"))
     return r * kv
 
 
@@ -190,14 +210,21 @@ def rglru_block(x, p, cfg, st, ctx):
     """Griffin recurrent block (in-proj, causal depthwise conv, RG-LRU,
     gate) of a (B, S, d) chunk against layer state ``st`` (``h`` f32,
     ``conv`` the last cw-1 conv inputs), which it advances in place.
-    S == 1 is a decode step."""
+    S == 1 is a decode step; ``st=None`` the training form (from ``h0 = 0``
+    and zero conv history)."""
     cw = cfg.conv1d_width
     B, S, _ = x.shape
     xb = x @ p["w_x"]
     gb = x @ p["w_gate"]
-    h0 = st["h"]
+    train = st is None
+    if train:
+        W = xb.shape[-1]
+        h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+        conv_buf = xb.new_zeros((B, cw - 1, W))
+    else:
+        h0, conv_buf = st["h"], st["conv"].to(xb.dtype)
     # causal depthwise conv over time (width cw), history from the buffer
-    hist = torch.cat([st["conv"].to(xb.dtype), xb], dim=1)  # (B,S+cw-1,W)
+    hist = torch.cat([conv_buf, xb], dim=1)  # (B,S+cw-1,W)
     conv = sum(hist[:, i:i + S, :] * p["conv_w"][cw - 1 - i]
                for i in range(cw))
     conv = conv + p["conv_b"]
@@ -205,7 +232,10 @@ def rglru_block(x, p, cfg, st, ctx):
     r_gate = torch.sigmoid(conv @ p["w_a"] + p["b_a"])
     i_gate = torch.sigmoid(conv @ p["w_i"] + p["b_i"])
     a_log = -8.0 * F.softplus(p["lam"].float()) * r_gate.float()  # < 0
-    if ctx["kernel_backend"] == "cuda":
+    if train:
+        hs, a_cum = rglru_scan(conv, a_log, i_gate)
+        h_seq = hs + a_cum * h0[:, None, :]  # the reference's form
+    elif ctx["kernel_backend"] == "cuda":
         h_seq, new_h = kops.rglru_scan(conv, a_log, i_gate, h0)
     elif S == 1:
         a = torch.exp(a_log[:, 0])
@@ -216,9 +246,10 @@ def rglru_block(x, p, cfg, st, ctx):
         hs, a_cum = rglru_scan(conv, a_log, i_gate)
         h_seq = hs + a_cum * h0[:, None, :]  # fold the initial state in
         new_h = h_seq[:, -1, :]
-    active = ctx.get("active")
-    store_rows(st["h"], new_h, active)
-    if cw > 1:
-        store_rows(st["conv"], hist[:, -(cw - 1):, :], active)
+    if not train:
+        active = ctx.get("active")
+        store_rows(st["h"], new_h, active)
+        if cw > 1:
+            store_rows(st["conv"], hist[:, -(cw - 1):, :], active)
     y = h_seq.to(x.dtype) * F.gelu(gb, approximate="tanh")
     return y @ p["w_out"]

@@ -6,9 +6,10 @@ attention family (GQA decoders with a dense or MoE FFN: llama, qwen2-moe),
 the hybrid RG-LRU + local attention family (recurrentgemma) and the
 attention-free RWKV6 family.  One code path (``extend``) covers chunked
 prefill (C tokens against an existing cache) and decode (C == 1).  The
-cacheless training ``forward`` covers the dense attention family (llama,
-starcoder2, qwen2.5).  Layers run in the reference's order: the unrolled
-``head``, the repeated ``blocks`` pattern, then the unrolled ``tail``.
+cacheless training ``forward`` covers the same families (dense or MoE
+attention, RG-LRU hybrids, RWKV6) with the MoE aux loss summed over the
+layers.  Layers run in the reference's order: the unrolled ``head``, the
+repeated ``blocks`` pattern, then the unrolled ``tail``.
 
 Differences from the reference, all forced by the frameworks:
 
@@ -27,11 +28,13 @@ Differences from the reference, all forced by the frameworks:
 ``kernel_backend`` mirrors the reference's ``"xla" | "pallas"`` knob as
 ``"plain" | "cuda"``.  ``"cuda"`` (the default) sends attention (in
 training the differentiable ``ops.flash_attention_train``, whose backward
-is a kernel too), the MoE expert products and the RG-LRU / WKV6
-recurrences through ``repro_torch.kernels.ops``, whose wrappers launch the
-CUDA kernels on CUDA tensors and fall to their plain versions only for CPU
-tensors; ``"plain"`` runs ``models.attention`` (differentiated by
-autograd in training), ``torch.einsum`` and ``models.ssm``'s scans.
+is a kernel too), and in serving the MoE expert products and the RG-LRU /
+WKV6 recurrences, through ``repro_torch.kernels.ops``, whose wrappers
+launch the CUDA kernels on CUDA tensors and fall to their plain versions
+only for CPU tensors; ``"plain"`` runs ``models.attention`` (differentiated
+by autograd in training), ``torch.einsum`` and ``models.ssm``'s scans.
+Training runs the expert products and the scans on the plain path under
+either backend (``check_trainable``).
 """
 from __future__ import annotations
 
@@ -404,15 +407,20 @@ def _run_trunk(cfg, layers, x, cache, ctx):
 
 # ============================ training forward ==============================
 def check_trainable(cfg) -> None:
-    """``forward`` covers the dense attention family; every other family
-    raises, naming the ROADMAP.md item that ports its training."""
+    """``forward`` trains every family that ``check_supported`` accepts:
+    dense or MoE attention, RG-LRU hybrids and RWKV6.  MLA and dense head
+    layers (ROADMAP.md queue 1, item 8) and the enc-dec and vision forms
+    (item 10) raise, as they do in serving.
+
+    Kernels in training are fixed by mode, not chosen at run time: with
+    ``kernel_backend="cuda"`` every attention layer runs the CUDA
+    ``flash_attention`` forward and ``flash_attention_bwd`` backward
+    (``ops.flash_attention_train``), while the MoE expert products and the
+    RG-LRU / WKV6 recurrences always run their plain, autograd-
+    differentiated forms, as the reference's training forward reaches no
+    Pallas kernel: ``moe_gemm``, ``rglru_scan`` and ``rwkv6_scan`` are
+    forward-only kernels with no backward (item 11 (c))."""
     check_supported(cfg)
-    head, pattern, _, tail = layout(cfg)
-    if cfg.is_moe or set(head + pattern + tail) != {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: training of the MoE, RG-LRU and RWKV6 families is "
-            "not ported yet: their kernels (moe_gemm, rglru_scan, "
-            "rwkv6_scan) have no backward (ROADMAP.md queue 1, item 11)")
 
 
 def _attn_mix_train(cfg, ap, x, ctx):
@@ -443,12 +451,40 @@ def _attn_mix_train(cfg, ap, x, ctx):
     return out.reshape(B, S, Hq * hd) @ ap["wo"]
 
 
-def _apply_block_train(cfg, lp, x, ctx):
-    """One residual attention block over (B, S, d), no cache."""
+def _ffn_train(cfg, lp, x, ctx):
+    """FFN / MoE sublayer on (B, S, d) in training: (y, aux).  The MoE runs
+    at the capacity factor's capacity, dropping assignments past it, with
+    its expert products on the plain path (``check_trainable``)."""
+    if "moe" not in lp:
+        return mlp(x, lp["ffn"], cfg.mlp_gated), _zero_aux(x)
+    B, S, d = x.shape
+    y, aux = moe_ffn(x.reshape(B * S, d), lp["moe"], cfg,
+                     capacity_factor=ctx["capacity_factor"],
+                     kernel_backend="plain")
+    return y.reshape(B, S, d), aux
+
+
+def _zero_aux(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _apply_block_train(cfg, kind, lp, x, ctx):
+    """One residual block of ``kind`` over (B, S, d), no cache, from zero
+    recurrent state: (x, aux) (``repro.models.transformer.apply_block`` with
+    ``mode="train"``).  RWKV6's channel mix starts from a zero shift."""
     h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
-    x = x + _attn_mix_train(cfg, lp["attn"], h, ctx)
+    if kind == "rwkv6":
+        x = x + rwkv6_block(h, lp["tm"], cfg, None, ctx)
+        h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
+        return x + rwkv6_channel_mix(h2, lp["tm"]["cm"], None, ctx), \
+            _zero_aux(x)
+    if kind == "rglru":
+        x = x + rglru_block(h, lp["rg"], cfg, None, ctx)
+    else:
+        x = x + _attn_mix_train(cfg, lp["attn"], h, ctx)
     h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
-    return x + mlp(h2, lp["ffn"], cfg.mlp_gated)
+    y, aux = _ffn_train(cfg, lp, h2, ctx)
+    return x + y, aux
 
 
 def _unbind(tree, R):
@@ -463,48 +499,53 @@ def _unbind(tree, R):
 
 
 def _train_layers(cfg, params):
-    """Every layer's parameter tree in execution order (attention layers
-    all: ``check_trainable``)."""
+    """(kind, parameter tree) of every layer in execution order: the head,
+    each repeat of the pattern (recurrentgemma's (R, R, A) x 12), then the
+    tail ((R, R))."""
     head, pattern, repeats, tail = layout(cfg)
     stacked = [_unbind(params["blocks"][str(pi)], repeats)
                for pi in range(len(pattern))]
-    return ([params["head"][str(i)] for i in range(len(head))]
-            + [stacked[pi][r] for r in range(repeats)
-               for pi in range(len(pattern))]
-            + [params["tail"][str(i)] for i in range(len(tail))])
+    return ([(kind, params["head"][str(i)]) for i, kind in enumerate(head)]
+            + [(kind, stacked[pi][r]) for r in range(repeats)
+               for pi, kind in enumerate(pattern)]
+            + [(kind, params["tail"][str(i)])
+               for i, kind in enumerate(tail)])
 
 
 def _run_trunk_train(cfg, params, x, ctx, *, remat):
-    """Every layer in order; with ``remat`` each layer is checkpointed
-    (``torch.utils.checkpoint``, non-reentrant), as the reference wraps its
-    scanned layer group in ``jax.checkpoint``: only the layer inputs are
-    kept, and each layer's forward runs again in the backward."""
-    for lp in _train_layers(cfg, params):
+    """Every layer in order, the aux losses summed in that order; with
+    ``remat`` each layer is checkpointed (``torch.utils.checkpoint``,
+    non-reentrant), as the reference wraps its scanned layer group in
+    ``jax.checkpoint``: only the layer inputs are kept, and each layer's
+    forward, its aux among its outputs, runs again in the backward."""
+    aux_total = _zero_aux(x)
+    for kind, lp in _train_layers(cfg, params):
         if remat:
-            x = checkpoint(_apply_block_train, cfg, lp, x, ctx,
-                           use_reentrant=False)
+            x, aux = checkpoint(_apply_block_train, cfg, kind, lp, x, ctx,
+                                use_reentrant=False)
         else:
-            x = _apply_block_train(cfg, lp, x, ctx)
-    return x
+            x, aux = _apply_block_train(cfg, kind, lp, x, ctx)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def forward(cfg, params, tokens, *, window=None, remat=True, q_chunk=512,
-            kv_chunk=512, kernel_backend="cuda"):
+            kv_chunk=512, capacity_factor=1.25, kernel_backend="cuda"):
     """Training forward: full-sequence logits (B, S, V) and the MoE aux loss
-    (zero: this slice's families have no router), mirroring
-    ``repro.models.transformer.forward``.  tokens: (B, S) int.  The
-    parameters' ``requires_grad`` decides what autograd tracks."""
+    summed over the layers (zero for the families without a router),
+    mirroring ``repro.models.transformer.forward``.  tokens: (B, S) int.
+    The parameters' ``requires_grad`` decides what autograd tracks."""
     check_trainable(cfg)
     _check_backend(kernel_backend)
     x = embed_tokens(tokens, params["embed"]["w"])
     S = x.shape[1]
     ctx = {"positions": torch.arange(S, device=x.device), "window": window,
-           "q_chunk": q_chunk, "kv_chunk": kv_chunk,
+           "q_chunk": q_chunk, "kv_chunk": kv_chunk, "ssm_chunk": 32,
+           "capacity_factor": capacity_factor,
            "kernel_backend": kernel_backend}
-    x = _run_trunk_train(cfg, params, x, ctx, remat=remat)
+    x, aux = _run_trunk_train(cfg, params, x, ctx, remat=remat)
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
-    return lm_logits(x, params), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+    return lm_logits(x, params), aux
 
 
 # ============================ public entry points ===========================

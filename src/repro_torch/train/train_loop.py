@@ -5,7 +5,10 @@ A step is ``loss.backward()`` then ``adamw_update``: eager PyTorch, with
 no ``torch.compile``.  With ``kernel_backend="cuda"`` every attention
 layer's forward runs the CUDA ``flash_attention`` kernel (twice under
 remat: once in the forward, once in the backward's recompute) and its
-backward the CUDA ``flash_attention_bwd`` kernel.
+backward the CUDA ``flash_attention_bwd`` kernel; the MoE expert products
+and the recurrent scans run on the plain path
+(``models.check_trainable``).  The MoE aux loss, summed over the layers by
+``forward``, enters the loss at ``router_aux_loss_coef``.
 """
 from __future__ import annotations
 

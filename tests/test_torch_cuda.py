@@ -1037,16 +1037,22 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                 q)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-7b",
+                                  "qwen2-moe-a2.7b", "recurrentgemma-9b",
+                                  TAIL, "rwkv6-1.6b"])
 def test_tiny_train_step_through_kernels_matches_plain_path(cuda, arch):
     """A tiny f32 model's loss and gradients with kernel_backend="cuda"
-    (each layer: one forward launch, one more in remat's recompute, one
-    backward launch) against the plain path on the same card."""
+    (each attention layer: one forward launch, one more in remat's
+    recompute, one backward launch; the expert GEMM and the scans none,
+    training runs them on the plain path) against the plain path on the
+    same card."""
     from repro_torch.configs import get_tiny_config
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, layout
     from repro_torch.train.train_loop import loss_and_grads
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_tiny_config(arch)
+    cfg = tiny(get_tiny_config, arch)
+    head, pattern, repeats, tail = layout(cfg)
+    n_attn = (head + pattern * repeats + tail).count("attn")
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 81))).to(cuda)
@@ -1055,11 +1061,12 @@ def test_tiny_train_step_through_kernels_matches_plain_path(cuda, arch):
         before = dict(ops.LAUNCHES)
         loss, _, grads = loss_and_grads(cfg, params, toks,
                                         kernel_backend=backend)
-        n = {k: ops.LAUNCHES[k] - before[k] for k in
-             ("flash_attention", "flash_attention_bwd")}
-        want = (2 * cfg.num_layers, cfg.num_layers) if backend == "cuda" \
-            else (0, 0)
-        assert (n["flash_attention"], n["flash_attention_bwd"]) == want, n
+        n = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        want = {k: 0 for k in before}
+        if backend == "cuda":
+            want.update(flash_attention=2 * n_attn,
+                        flash_attention_bwd=n_attn)
+        assert n == want, n
         runs[backend] = (loss, {k: g.clone() for k, g in grads.items()})
     (lc, gc), (lp, gp) = runs["cuda"], runs["plain"]
     assert abs(float(lc) - float(lp)) <= 1e-5 * abs(float(lp))

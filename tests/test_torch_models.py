@@ -23,6 +23,7 @@ from repro_torch import models as T
 from repro_torch.configs import get_tiny_config as t_tiny
 from repro_torch.kernels import ops
 from repro_torch.models import ssm as tssm
+import torch_train_cases as ttc
 from torch_recurrent_cases import (RECURRENT_ARCHS, RGLRU_CASES, TAIL,
                                    rglru_case, rwkv6_case, tiny)
 
@@ -637,89 +638,72 @@ def test_rwkv6_block_matches_reference(S, backend):
 
 
 # -- the training forward -----------------------------------------------------
-# The dense attention family's training forward, loss and gradients against
-# the reference's forward and jax.value_and_grad of its lm_loss, on the same
+# Every trained family's training forward, loss and gradients against the
+# reference's forward and jax.value_and_grad of its lm_loss, on the same
 # weights (f32), for both kernel backends ("cuda" on CPU tensors runs the
-# autograd Function over the flash plain versions).  The qkv biases, zero at
-# init, are drawn at random so they count.  Limits: logits 3e-3 (the
-# consistency tolerance); the loss to 1e-5 relative and every gradient leaf
-# to 1e-4 relative L2 (f32 summation order only; measured ~1e-7 and ~5e-6).
-TRAIN_ARCHS = ["llama3-405b", "starcoder2-7b", "qwen2.5-32b"]
-
-
-def _train_weights(arch):
-    jcfg, jp, tcfg, _ = _weights(arch)
-    jp = jax.tree_util.tree_map(np.asarray, jp)
-    if jcfg.qkv_bias:
-        rng = np.random.default_rng(7)
-        ap = jp["blocks"]["0"]["attn"]
-        for n in ("bq", "bk", "bv"):
-            ap[n] = (rng.standard_normal(ap[n].shape) * 0.5).astype(
-                np.float32)
-    return jcfg, jp, tcfg
-
-
-def _port(jp):
-    return T.module_from_state_dict(T.from_jax_params(jp))
+# autograd Function over the flash plain versions; the expert products and
+# the scans run on the plain path under either).  The qkv biases, zero at
+# init, are drawn at random so they count.  48 tokens: past the tiny
+# windows (starcoder2's and recurrentgemma's 32) and one ragged 32-token
+# WKV chunk; the recurrent families from zero state.  Limits
+# (tests/torch_train_cases.py): logits 3e-3 (the consistency tolerance);
+# the aux loss, the loss to 1e-5 relative and every gradient leaf to 1e-4
+# relative L2 (f32 summation order only; measured ~1e-7 and ~5e-6).  The
+# MoE family's capacity-drop cases are in tests/test_torch_moe.py.
+TRAIN_ARCHS = ["llama3-405b", "starcoder2-7b", "qwen2.5-32b",
+               "qwen2-moe-a2.7b"] + RECURRENT_ARCHS
+TRAIN_S = 48
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 def test_train_forward_logits_match_jax(arch, backend):
-    jcfg, jp, tcfg = _train_weights(arch)
-    toks = _tokens(jcfg, (2, 48))  # past starcoder2's 32-token window
-    jl, jaux = J.forward(jcfg, jp, jnp.asarray(toks))
-    tl, taux = T.forward(tcfg, _port(jp), torch.from_numpy(toks),
+    jcfg, jp, tcfg = ttc.train_weights(arch)
+    jl, jaux = ttc.jax_forward(arch, TRAIN_S)
+    toks = ttc.tokens(jcfg, (2, TRAIN_S))
+    tl, taux = T.forward(tcfg, ttc.port(jp), torch.from_numpy(toks),
                          kernel_backend=backend)
-    assert tl.shape == (2, 48, jcfg.vocab_size)
-    _close(tl.detach(), jl, 3e-3)
-    assert float(taux) == float(jaux) == 0.0
+    assert tl.shape == (2, TRAIN_S, jcfg.vocab_size)
+    ttc.assert_close(tl.detach(), jl, ttc.LOGITS_TOL)
+    ttc.assert_rel(float(taux), jaux, ttc.AUX_REL, "aux")
+    assert (jaux > 0) == jcfg.is_moe  # 0.0 exactly without a router
 
 
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 def test_lm_loss_and_grads_match_jax(arch, backend):
-    from repro.train.train_loop import lm_loss as j_lm_loss
     from repro_torch.train.train_loop import loss_and_grads
-    jcfg, jp, tcfg = _train_weights(arch)
-    toks = _tokens(jcfg, (2, 49))
-    (jloss, jmet), jg = jax.value_and_grad(
-        lambda p: j_lm_loss(jcfg, p, jnp.asarray(toks)), has_aux=True)(jp)
-    loss, met, grads = loss_and_grads(tcfg, _port(jp),
+    jcfg, jp, tcfg = ttc.train_weights(arch)
+    jloss, jnll, want = ttc.jax_loss_and_grads(arch, TRAIN_S)
+    toks = ttc.tokens(jcfg, (2, TRAIN_S + 1))
+    loss, met, grads = loss_and_grads(tcfg, ttc.port(jp),
                                       torch.from_numpy(toks),
                                       kernel_backend=backend)
-    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
-    assert abs(float(met["nll"]) - float(jmet["nll"])) \
-        <= 1e-5 * abs(float(jmet["nll"]))
-    want = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                     for k in path): np.asarray(g)
-            for path, g in jax.tree_util.tree_leaves_with_path(jg)}
-    assert set(grads) == set(want)
-    for name, w in want.items():
-        g = grads[name].numpy()
-        assert g.shape == w.shape, name
-        rel = np.linalg.norm(g - w) / np.linalg.norm(w)
-        assert rel <= 1e-4, (name, rel)
+    ttc.assert_rel(float(loss), jloss, ttc.LOSS_REL, "loss")
+    ttc.assert_rel(float(met["nll"]), jnll, ttc.LOSS_REL, "nll")
+    ttc.assert_grads_match(grads, want)
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen2.5-32b"])
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen2.5-32b",
+                                  "qwen2-moe-a2.7b", TAIL])
 @pytest.mark.parametrize("backend", ["plain", "cuda"])
 def test_remat_leaves_gradients_unchanged(arch, backend):
     """Checkpointing each layer recomputes its forward in the backward: on
-    the CPU the recompute is bit-identical, so the gradients are too."""
+    the CPU the recompute is bit-identical (the MoE routes the same tokens
+    to the same slots; recurrentgemma's mixed pattern and tail), so the
+    gradients are too."""
     from repro_torch.train.train_loop import loss_and_grads
-    jcfg, jp, tcfg = _train_weights(arch)
-    toks = torch.from_numpy(_tokens(jcfg, (2, 41)))
-    runs = [loss_and_grads(tcfg, _port(jp), toks, remat=remat,
+    jcfg, jp, tcfg = ttc.train_weights(arch)
+    toks = torch.from_numpy(ttc.tokens(jcfg, (2, 41)))
+    runs = [loss_and_grads(tcfg, ttc.port(jp), toks, remat=remat,
                            kernel_backend=backend) for remat in (True, False)]
     assert torch.equal(runs[0][0], runs[1][0])
     for name, g in runs[0][2].items():
         assert torch.equal(g, runs[1][2][name]), name
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b",
-                                  "rwkv6-1.6b", "deepseek-v2-lite-16b",
-                                  "whisper-tiny", "llava-next-34b"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "whisper-tiny",
+                                  "llava-next-34b"])
 def test_training_forward_of_unported_families_raises(arch):
     cfg = t_tiny(arch)
     toks = torch.zeros((1, 4), dtype=torch.int64)

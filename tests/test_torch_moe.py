@@ -6,12 +6,15 @@ Inputs are made with numpy from a seed (weights: the reference's
 frameworks.  Tolerances, in f32: 1e-4 for the GEMM, the reference's own
 kernel-vs-oracle tolerance (tests/test_kernels.py); 1e-5 for the MoE layer,
 whose routing, dispatch and combine are the same arithmetic in both
-frameworks and differ only in summation order."""
+frameworks and differ only in summation order.  The MoE family's training
+forward, loss and gradients with dropped assignments are held to the
+reference at the limits of tests/torch_train_cases.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_train_cases as ttc
 
 from repro.configs import get_tiny_config as j_tiny
 from repro.kernels import ops as jops
@@ -150,3 +153,47 @@ def test_moe_dropless_matches_dense_mixture(T, k):
     want = want + mlp(x, tp["shared"], tcfg.mlp_gated)
     torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-5)
     assert float(aux) >= 0.0
+
+
+# -- training ------------------------------------------------------------------
+# The MoE family's training forward, aux loss, loss and gradients with routed
+# assignments dropped, against the reference's forward and
+# jax.value_and_grad (limits: tests/torch_train_cases.py), the expert
+# products on the plain path under either backend.  At the default capacity
+# factor (1.25, tests/test_torch_models.py's training cases) the tiny
+# model's 96 tokens drop nothing; at 0.5 the capacity is 24 of the 48
+# assignments an expert averages, so assignments are dropped, and the
+# gradients reach the router through the renormalised top-k weights and the
+# aux loss only.
+TRAIN_S = 48
+DROP_CF = 0.5
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_moe_train_forward_with_dropped_assignments_matches_jax(backend):
+    from repro_torch import models as T
+    jcfg, jp, tcfg = ttc.train_weights(ARCH)
+    jl, jaux = ttc.jax_forward(ARCH, TRAIN_S, DROP_CF)
+    toks = torch.from_numpy(ttc.tokens(jcfg, (2, TRAIN_S)))
+    tl, taux = T.forward(tcfg, ttc.port(jp), toks, capacity_factor=DROP_CF,
+                         kernel_backend=backend)
+    ttc.assert_close(tl.detach(), jl, ttc.LOGITS_TOL)
+    ttc.assert_rel(float(taux), jaux, ttc.AUX_REL, "aux")
+    # at capacity T (factor E / K) nothing can drop; at DROP_CF the dropped
+    # assignments change the output
+    full, _ = T.forward(tcfg, ttc.port(jp), toks,
+                        capacity_factor=tcfg.num_experts / tcfg.moe_top_k,
+                        kernel_backend=backend)
+    assert (full - tl).abs().max().item() > 1e-2
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_moe_grads_with_dropped_assignments_match_jax(backend):
+    jcfg, jp, tcfg = ttc.train_weights(ARCH)
+    jloss, jnll, want = ttc.jax_loss_and_grads(ARCH, TRAIN_S, DROP_CF)
+    loss, nll, grads = ttc.port_loss_and_grads(
+        tcfg, ttc.port(jp), ttc.tokens(jcfg, (2, TRAIN_S + 1)), DROP_CF,
+        kernel_backend=backend)
+    ttc.assert_rel(loss, jloss, ttc.LOSS_REL, "loss")
+    ttc.assert_rel(nll, jnll, ttc.LOSS_REL, "nll")
+    ttc.assert_grads_match(grads, want)

@@ -9,6 +9,7 @@ import copy
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -48,7 +49,8 @@ def test_pow2_buckets_match_reference():
 def test_port_imports_neither_jax_nor_repro():
     """Every repro_torch module imports (``models/moe.py``,
     ``models/ssm.py``, the trainer, the data pipeline and the train
-    launcher among them), CPU serves of a dense, an MoE, an RG-LRU hybrid
+    launcher among them), the four ``examples/*_torch.py`` files load, CPU
+    serves of a dense, an MoE, an RG-LRU hybrid
     and an RWKV6 model run, and a tiny train step runs, with ``jax`` and
     ``repro`` blocked in ``sys.meta_path``."""
     script = r"""
@@ -73,6 +75,11 @@ assert {"repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
         "repro_torch.launch.train", "repro_torch.launch.serve",
         "repro_torch.launch.frontend"} <= set(sys.modules)
+import importlib.util
+for name in EXAMPLES:
+    spec = importlib.util.spec_from_file_location(
+        name, f"examples/{name}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 
 from repro_torch.configs import get_tiny_config
 from repro_torch.core import Priority, Request
@@ -108,11 +115,99 @@ print("OK")
     env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin"}
     env.update({k: os.environ[k] for k in ("HOME", "TMPDIR")
                 if k in os.environ})
+    script = f"EXAMPLES = {EXAMPLES!r}\n" + script
     out = subprocess.run([sys.executable, "-c", script],
                          capture_output=True, text=True, env=env,
                          cwd=__file__.rsplit("/", 2)[0], timeout=300)
     assert out.returncode == 0, out.stderr
     assert "OK" in out.stdout
+
+
+# -- the examples over the port ----------------------------------------------
+# Each runs as a user runs it, in a subprocess with ``--device cpu`` at tiny
+# size (their defaults where they are small); the serving examples' reports
+# are read back.  With no GPU visible, ``--device cuda`` (the default)
+# raises.
+EXAMPLES = ("quickstart_torch", "serve_agentic_torch",
+            "mixed_workload_demo_torch", "train_tiny_torch")
+
+
+def _example(name, *args, gpus=None):
+    # two intra-op threads: beside the suite's other workers an example's
+    # torch would otherwise start one thread a core and spend its time in
+    # their contention (164 s for a 6 s run)
+    env = {"PYTHONPATH": "src", "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "2"}
+    env.update({k: os.environ[k] for k in ("HOME", "TMPDIR")
+                if k in os.environ})
+    if gpus is not None:
+        env["CUDA_VISIBLE_DEVICES"] = gpus
+    return subprocess.run([sys.executable, f"examples/{name}.py", *args],
+                          capture_output=True, text=True, env=env,
+                          cwd=__file__.rsplit("/", 2)[0], timeout=300)
+
+
+def _report(out, label):
+    """The integers of the report line that starts with ``label``."""
+    line = next(ln for ln in out.splitlines() if ln.startswith(label))
+    return [int(x) for x in re.findall(r"(?<![\d.])\d+(?![\d.])", line)]
+
+
+def test_quickstart_example_trains_then_serves_on_cpu():
+    out = _example("quickstart_torch", "--device", "cpu", "--steps", "20",
+                   "--batch", "4", "--seq", "48")
+    assert out.returncode == 0, out.stderr
+    first, last = (float(x) for x in next(
+        ln for ln in out.stdout.splitlines() if ln.startswith("loss:")
+    )[len("loss:"):].split("->"))
+    assert last < first
+    assert "[PROACTIVE] 'the scheduler '" in out.stdout
+    assert "[REACTIVE] 'agent 7 schedules a '" in out.stdout
+
+
+@pytest.mark.parametrize("args", [(), ("--inject-mid-stream", "--stream",
+                                       "--kernel-backend", "plain")],
+                         ids=["fused", "inject_plain"])
+def test_serve_agentic_example_report_on_cpu(args):
+    """Tiny qwen2-moe-a2.7b: every flow completes; in the fused default the
+    decode device calls and host syncs stay below the decode tokens, and
+    every slot is free at exit."""
+    out = _example("serve_agentic_torch", "--device", "cpu", *args)
+    assert out.returncode == 0, out.stderr
+    assert "serving tiny qwen2-moe-a2.7b" in out.stdout
+    n = _report(out.stdout, "retired")
+    assert n[0] == n[1] == 7
+    calls, tokens, slots = _report(out.stdout, "decode device calls")
+    syncs = _report(out.stdout, "host syncs")[0]
+    assert 0 < calls < tokens and 0 < syncs < tokens
+    assert _report(out.stdout, "prefix reuse")[0] > 0
+    assert "kernel backend " + ("plain" if args else "cuda") in out.stdout
+    assert f"{slots}/{slots} slots free at exit" in out.stdout
+    if "--stream" in args:
+        assert "[stream] req 6 [reactive ] token" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "recurrentgemma-9b",
+                                  "rwkv6-1.6b"])
+def test_train_tiny_example_trains_each_family_on_cpu(arch, tmp_path):
+    out = _example("train_tiny_torch", "--arch", arch, "--device", "cpu",
+                   "--steps", "3", "--log-every", "1", "--batch", "2",
+                   "--seq", "40", "--ckpt-dir", str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert f"arch={arch}-tiny" in out.stdout and "[train] done" in out.stdout
+    assert os.path.exists(tmp_path / "step_00000003.npz")
+
+
+def test_mixed_workload_demo_example_on_cpu_and_refuses_missing_gpu():
+    out = _example("mixed_workload_demo_torch", "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    rows = [ln.split() for ln in out.stdout.splitlines()[1:] if ln.strip()]
+    assert [r[0] for r in rows] == [
+        "agent.xpu", "fcfs", "naive_preempt", "timeshare",
+        "continuous_batching"] * 3
+    refused = _example("mixed_workload_demo_torch", gpus="")
+    assert refused.returncode != 0
+    assert "no GPU is visible" in refused.stderr
 
 
 
@@ -359,6 +454,39 @@ def _fault_reqs(rng_seed, arrivals, prompt_lens, out_tokens, reactive=(),
                arrival_time=a, tokens=t.copy())
              for i, (a, t) in enumerate(zip(arrivals, toks))]
             for R, P in ((JR, JP), (TR, TP))]
+
+
+@pytest.mark.parametrize("cap", [2, 3])
+def test_store_rows_count_toward_the_pool_cap_as_in_reference(cap):
+    """Four flows sharing a 32-token system prompt, one after another
+    (each after the one before completes, on the scheduler's clock)
+    through a pool capped at ``cap``: each binds the slot its donor held,
+    so the donor is promoted to the snapshot store and the hit pasted from
+    it.  The store's rows count toward the cap when a flow arrives, in the
+    reference and the port alike, which ``SimBackend`` does not model: at
+    a cap of 2 the fourth arrival evicts the unpinned prefixes and misses
+    the hit the simulation predicts; at 3 all three agree."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.core import AgentXPUEngine as TEngine
+    from repro_torch.core.backend import SimBackend
+    tcfg = get_tiny_config("llama3-405b")
+
+    def sim(reqs, hot):
+        eng = TEngine(tcfg, pool_slots_max=cap)
+        eng.backend = SimBackend(prefix_cache=hot, max_len=128)
+        return eng, eng.run_trace(copy.deepcopy(reqs))
+    arrivals = [0.0]
+    for k in range(1, 4):
+        reqs = _fault_reqs(5, arrivals, [20, 11, 17, 9][:k], 4, shared=32)[1]
+        _, m = sim(reqs, hot=False)
+        arrivals.append(max(r.finish_t for r in m.completed) + 0.01)
+    reqs = _fault_reqs(5, arrivals, [20, 11, 17, 9], 4, shared=32)
+    predicted = sim(reqs[1], hot=True)[0].backend.stats()["prefix_hits"]
+    jeng, teng = _fault_engines(pool_slots_max=cap)
+    _serve_faulty(jeng, teng, reqs)
+    st = teng.stats()
+    assert predicted == 3 and st["prefix_promotions"] >= 1
+    assert st["prefix_hits"] == (2 if cap == 2 else 3)
 
 
 def _serve_faulty(jeng, teng, reqs, hook=None):
