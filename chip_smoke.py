@@ -10,8 +10,9 @@ training shapes), trains ``llama3.2-3b`` at full width (f32, AdamW,
 remat; one step's loss and gradients through the kernels held to the plain
 path, a planted backward fault caught, one step profiled, then five steps
 through the port's launcher with the loss falling), trains
-``qwen2-moe-a2.7b`` (4 of 24 layers), ``recurrentgemma-9b`` (5 of 38) and
-``rwkv6-1.6b`` (all 24) at full width the same way (``[train]``: the
+``qwen2-moe-a2.7b`` (4 of 24 layers), ``recurrentgemma-9b`` (5 of 38),
+``rwkv6-1.6b`` (all 24) and ``deepseek-v2-lite-16b`` (4 of 27: its dense
+head layer and 3 MoE layers) at full width the same way (``[train]``: the
 depth cuts that one card's memory forces, ``TRAIN_FAMILIES``; the expert
 GEMM and the scans launched 0 times, training runs them on the plain
 path; five steps through ``train_loop.train``, or the launcher at full
@@ -21,14 +22,18 @@ a seeded device generator) through the port's ``RealAgentXPUEngine``,
 checks every served token against the plain path on the same card, repeats
 a shorter serve with an int8 KV pool, serves ``qwen2-moe-a2.7b`` (the MoE
 path: 60 routed experts through the grouped expert GEMM kernel),
+``deepseek-v2-lite-16b`` (MLA attention on its plain path, which has no
+kernel, a dense head layer, then 64 routed experts top-6 through the
+grouped expert GEMM kernel: 78 launches a forward call),
 ``recurrentgemma-9b`` (RG-LRU through the ``rglru_scan`` kernel beside local
 attention at head_dim 256) and ``rwkv6-1.6b`` (WKV6 through the
 ``rwkv6_scan`` kernel) at full width the same way (rwkv6's tokens are held
 to the plain path in an f32 serve, and its bf16 serve beside serves with a
 planted WKV fault: see F32_TOKEN_CHECK), profiles one ``llama3.2-3b``, one
-``qwen2-moe-a2.7b``, one ``recurrentgemma-9b`` and one ``rwkv6-1.6b``
-prefill chunk and decode segment (the serving attention kernels', the
-expert GEMM's and the scans' share of device time), holds the expert
+``qwen2-moe-a2.7b``, one ``deepseek-v2-lite-16b``, one
+``recurrentgemma-9b`` and one ``rwkv6-1.6b`` prefill chunk and decode
+segment (the serving attention kernels', the expert GEMM's, the plain MLA
+ops' and the scans' share of device time), holds the expert
 GEMM's outputs bitwise equal to the kernel it replaced
 (``tools/moe_gemm_fma.cu``, built beside it), and
 serves ``llama3.2-3b`` through the serving modules on the same weights --
@@ -58,6 +63,7 @@ is visible or when run outside the repository.  Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -76,6 +82,7 @@ ARCH = "llama3.2-3b"
 MOE_ARCH = "qwen2-moe-a2.7b"
 RG_ARCH = "recurrentgemma-9b"
 RWKV_ARCH = "rwkv6-1.6b"
+DS_ARCH = "deepseek-v2-lite-16b"
 SEED = 0
 MAX_LEN = 2048
 POOL = 16
@@ -111,8 +118,14 @@ LOGIT_MARGIN = 0.25
 # and so do its bf16 and f32 plain evaluations (PERF.md, PR 13).  Its bf16
 # serve's largest gap is held to that noise floor plus LOGIT_MARGIN, a gate
 # whose power is shown by serves with a planted WKV fault (WKV_FAULTS), and
-# its served tokens to LOGIT_MARGIN itself in an f32 serve
-F32_TOKEN_CHECK = (RWKV_ARCH,)
+# its served tokens to LOGIT_MARGIN itself in an f32 serve.
+# deepseek-v2-lite-16b's bf16 serve routes near-ties of its top-6 of 64
+# experts apart on the kernel and plain paths (its largest gap, 0.5156, at a
+# token that layers 21 and 22 route to other experts), and the plain path's
+# own bf16 floor, 1.7188, is above LOGIT_MARGIN too (PERF.md, on the H100):
+# its bf16 serve is held to that floor plus the margin and its tokens to
+# LOGIT_MARGIN in an f32 serve
+F32_TOKEN_CHECK = (RWKV_ARCH, DS_ARCH)
 # the runs under torch.profiler: one training step, and one prefill chunk
 # and decode segment of each served model (profile_serving).  The serves
 # skip their profiled repeat (the trace's processing took 88-189 s a serve
@@ -134,15 +147,18 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 5
 TRAIN_LR = 3e-6
 # the other trained families: the depth cuts that one H100's 80 GB forces at
 # 16 B a parameter (f32 weights, gradients, two Adam moments; full depth
-# would need ~229 GB for the MoE, ~167 GB for recurrentgemma), widths full,
-# and each family's learning rate for the TRAIN_STEPS steps: the largest of
-# the trials 3e-5, 1e-5 and 3e-6 whose loss fell at every step (on the
-# H100: rwkv6's rose at the third step at 3e-5; tools/smoke_phases.py lr,
-# PERF.md)
+# would need ~229 GB for the MoE, ~167 GB for recurrentgemma, ~251 GB for
+# deepseek-v2-lite, whose cut keeps its dense head layer and 3 MoE layers),
+# widths full, and each family's learning rate for the TRAIN_STEPS steps:
+# the largest of the trials 3e-5, 1e-5 and 3e-6 whose loss fell at every
+# step (on the H100: rwkv6's rose at the third step at 3e-5;
+# tools/smoke_phases.py lr, PERF.md)
 TRAIN_FAMILIES = {MOE_ARCH: dict(num_layers=4),
                   RG_ARCH: dict(num_layers=5, pattern_repeats=1),
-                  RWKV_ARCH: {}}
-TRAIN_FAMILY_LR = {MOE_ARCH: 3e-5, RG_ARCH: 3e-5, RWKV_ARCH: 1e-5}
+                  RWKV_ARCH: {},
+                  DS_ARCH: dict(num_layers=4)}
+TRAIN_FAMILY_LR = {MOE_ARCH: 3e-5, RG_ARCH: 3e-5, RWKV_ARCH: 1e-5,
+                   DS_ARCH: 3e-5}
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 FLASH_DROP = 64
@@ -156,7 +172,8 @@ PATH_KERNELS = {ARCH: ("decode_attention", "flash_attention_pool"),
                            "moe_gemm"),
                 RG_ARCH: ("decode_attention", "flash_attention_pool",
                           "rglru_scan"),
-                RWKV_ARCH: ("rwkv6_scan",)}
+                RWKV_ARCH: ("rwkv6_scan",),
+                DS_ARCH: ("moe_gemm",)}
 
 
 def log(*a):
@@ -469,15 +486,17 @@ def moe_cases(gen):
     slots.  Then the calls on each side of the kernel's C cuts (launch_c),
     rows filled as routed (MOE_ROUTED): an 8-row decode pool, and the
     serve's prefill pieces of 32, 64, 128 and 256 tokens (C 2, 5, 10,
-    21)."""
-    E = 60
+    21).  Last, deepseek-v2-lite-16b's (MOE_E64: 64 experts, the same d and
+    d_ff): its dropless 16-row decode pool, gate / up and down, and its
+    512-token prefill bucket (capacity int(512*6/64*1.25) = 60)."""
     cases = []
     for name, C, d, f, fill in [
             ("decode C=16 d=2048 f=1408", 16, 2048, 1408, None),
             ("decode down C=16 d=1408 f=2048", 16, 1408, 2048, None),
             ("prefill C=42 d=2048 f=1408", 42, 2048, 1408, None),
             ("single row C=1 d=2048 f=1408", 1, 2048, 1408, None),
-            (MOE_SERVED, 16, 2048, 1408, "served")] + MOE_ROUTED:
+            (MOE_SERVED, 16, 2048, 1408, "served")] + MOE_ROUTED + MOE_E64:
+        E = 64 if name.startswith("E=64") else 60
         x = torch.randn((E, C + 1, d), generator=gen, device="cuda")
         w = torch.randn((E, d, f), generator=gen, device="cuda") * 0.02
         if fill == "served":
@@ -500,6 +519,10 @@ MOE_ROUTED = [("decode C=8 as routed d=2048 f=1408", 8, 2048, 1408, 8)] + [
     for T, C in ((32, 2), (64, 5), (128, 10), (256, 21))]
 # the decode pool of the MoE serve as served: most rows zero
 MOE_SERVED = "decode C=16 as served d=2048 f=1408"
+# deepseek-v2-lite-16b's expert GEMMs (64 experts), every row live
+MOE_E64 = [("E=64 decode C=16 d=2048 f=1408", 16, 2048, 1408, None),
+           ("E=64 decode down C=16 d=1408 f=2048", 16, 1408, 2048, None),
+           ("E=64 prefill C=60 d=2048 f=1408", 60, 2048, 1408, None)]
 # the expert GEMM the shipped one replaced, built beside it: each case's
 # outputs are held bitwise equal to its outputs, since the sum's rounding
 # is part of the MoE serve's tokens
@@ -964,10 +987,13 @@ def _grad_gaps(cfg, params, toks, want):
     return loss, gaps
 
 
-def _device_times(fn):
+def _device_times(fn, ranges=()):
     """Run ``fn`` once under ``torch.profiler``: (wall s, device-side rows
     (kernel name, ms)).  Device events only: CPU operator rows would count
-    their kernels' time a second time."""
+    their kernels' time a second time.  Also {name: device ms of the
+    kernels launched inside it} for each ``record_function`` range of
+    ``ranges`` that ``fn`` opens; the ranges' own device-side rows are left
+    out of the kernel rows."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -977,9 +1003,15 @@ def _device_times(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+            for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    inside = {e.key: getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0)) / 1e3
+              for e in events
+              if e.device_type == DeviceType.CPU and e.key in ranges}
+    return wall, rows, inside
 
 
 def profile_train_step(cfg, params, toks):
@@ -990,7 +1022,7 @@ def profile_train_step(cfg, params, toks):
     (kernels, copies): CPU operator rows would count their kernels' time a
     second time."""
     from repro_torch.train.train_loop import loss_and_grads
-    wall, rows = _device_times(
+    wall, rows, _ = _device_times(
         lambda: loss_and_grads(cfg, params, toks, kernel_backend="cuda"))
     for p in params.parameters():
         p.grad = None
@@ -1023,9 +1055,39 @@ PROFILED_KERNELS = {
     "rglru_scan": ("rglru_",),
     "rwkv6_scan": ("wkv6_",)}
 # tokens of the profiled prefill chunks: the 512-token chunk of the llama
-# serve, that and the 128-token piece (the serve's most common) of the MoE
-# serve, the 128-token bucket (the largest) of the recurrent serves
+# and deepseek serves, that and the 128-token piece (the serve's most
+# common) of the MoE serve, the 128-token bucket (the largest) of the
+# recurrent serves
 PROFILE_CHUNK = {MOE_ARCH: (512, 128), RG_ARCH: (128,), RWKV_ARCH: (128,)}
+# MLA's plain ops, which no kernel name tells apart: the device time of the
+# kernels launched inside each range (profile_serving opens them around the
+# MLA attention functions and the whole MLA attention sublayer)
+MLA_RANGES = ("mla_attention", "mla_sublayer")
+
+
+@contextlib.contextmanager
+def _mla_ranges(cfg):
+    """For an MLA config, open a ``record_function`` range (MLA_RANGES)
+    around every call of the MLA attention functions and of the attention
+    sublayer inside the block; a no-op for any other config."""
+    from repro_torch.models import transformer
+    names = {"mla_decode_attention": "mla_attention",
+             "mla_prefill_attention": "mla_attention",
+             "_attn_mix_extend": "mla_sublayer"} if cfg.use_mla else {}
+    real = {n: getattr(transformer, n) for n in names}
+
+    def ranged(fn, label):
+        def wrapped(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return wrapped
+    for n, fn in real.items():
+        setattr(transformer, n, ranged(fn, names[n]))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(transformer, n, fn)
 
 
 def profile_serving(cfg, params):
@@ -1035,7 +1097,8 @@ def profile_serving(cfg, params):
     ring holding 3 C earlier positions) and one 8-step fused decode
     segment at B 16 (rows at 1024 positions, kv_limit 2048), each run once
     under the profiler after a warm-up, through ``extend`` and
-    ``decode_run`` with ``kernel_backend="cuda"``."""
+    ``decode_run`` with ``kernel_backend="cuda"``.  For MLA, also the
+    device time of the plain MLA ops (MLA_RANGES)."""
     from repro_torch.models import decode_run, extend, init_cache
     rng = np.random.default_rng(SEED + 2)
 
@@ -1066,7 +1129,8 @@ def profile_serving(cfg, params):
     runs.append((f"decode B={POOL} x 8 steps", lambda: decode_run(
         cfg, params, pool, last, active, 8, kv_limit=MAX_LEN)))
     for label, fn in runs:
-        wall, times = _device_times(fn)
+        with _mla_ranges(cfg):
+            wall, times, inside = _device_times(fn, MLA_RANGES)
         busy = sum(t for _, t in times)
         if busy <= 0:
             log(f"[profile] {cfg.name} {label}: no device time in the trace: "
@@ -1079,13 +1143,18 @@ def profile_serving(cfg, params):
             f"busy {busy:.2f} ms ({busy / 1e3 / wall:.3f} of wall)"
             + "".join(f"; {k} {sum(v.values()):.3f} ms "
                       f"({sum(v.values()) / busy:.3f} of busy)"
-                      for k, v in by.items() if v))
+                      for k, v in by.items() if v)
+            + "".join(f"; plain {k} {t:.3f} ms ({t / busy:.3f} of busy)"
+                      for k, t in inside.items()))
         for name, t in top:
             log(f"[profile]   {t:10.3f} ms  {name[:90]}")
         out[label] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
                           **{f"{k}_ms": v for k, v in by.items()},
                           **{f"{k}_share": sum(v.values()) / busy
                              for k, v in by.items()},
+                          **{f"{k}_ms": t for k, t in inside.items()},
+                          **{f"{k}_share": t / busy
+                             for k, t in inside.items()},
                           top_ms={n[:90]: t for n, t in top})
     del runs, pool
     _release()
@@ -1115,7 +1184,11 @@ def _train_batch():
 
 
 def _attn_layers(cfg):
+    """Attention layers that run the flash kernels in training: every one
+    but MLA's, which has no kernel."""
     from repro_torch.models import layout
+    if cfg.use_mla:
+        return 0
     head, pattern, repeats, tail = layout(cfg)
     return (head + pattern * repeats + tail).count("attn")
 
@@ -1280,15 +1353,17 @@ def _param_counts(cfg, full_cfg, params):
             other += p.numel()
             continue
         n = p.numel() // (repeats if sec == "blocks" else 1)
-        kind = kinds[sec][int(rest[0])]
         per_layer[(sec, rest[0])] = per_layer.get((sec, rest[0]), 0) + n
+    # a dense head layer (its own FFN width) counts apart from its kind
     by_kind = {}
     for (sec, i), n in per_layer.items():
-        by_kind.setdefault(kinds[sec][int(i)], set()).add(n)
+        by_kind.setdefault((sec == "head", kinds[sec][int(i)]),
+                           set()).add(n)
     assert all(len(v) == 1 for v in by_kind.values()), by_kind
     by_kind = {k: v.pop() for k, v in by_kind.items()}
     fh, fp, fr, ft = layout(full_cfg)
-    full = other + sum(by_kind[k] for k in fh + fp * fr + ft)
+    full = other + sum(by_kind[(True, k)] for k in fh) + sum(
+        by_kind[(False, k)] for k in fp * fr + ft)
     return sum(p.numel() for p in params.parameters()), full
 
 
@@ -1322,7 +1397,8 @@ def family_train_phase(arch, smi, lr=None):
     label = arch + (f" ({cfg.num_layers} of {full.num_layers} layers)"
                     if cut else "")
     log(f"[train] {label}: cut {cut or 'none'} (layers "
-        f"{cfg.num_layers}, {n_attn} attention), d_model {cfg.d_model}, "
+        f"{cfg.num_layers}, {n_attn} through the flash kernels), d_model "
+        f"{cfg.d_model}, "
         f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params f32, "
         f"{16 * n_params / 1e9:.1f} GB of weights, gradients and two Adam "
         f"moments at 16 B a parameter (full depth {n_full / 1e9:.3f} B, "
@@ -1524,13 +1600,15 @@ def _release():
 
 def forward_launches(cfg):
     """Kernel launches one forward call of ``cfg`` makes on the kernel path
-    (``attention``: decode or pool, by the call's token count)."""
+    (``attention``: decode or pool, by the call's token count; none for
+    MLA, which has no kernel), three expert GEMMs in each MoE layer (every
+    layer of an MoE config past its dense head layers)."""
     from repro_torch.models import layout
     head, pattern, repeats, tail = layout(cfg)
     kinds = list(head) + list(pattern) * repeats + list(tail)
     n_attn = kinds.count("attn")
-    return {"attention": n_attn,
-            "moe_gemm": 3 * n_attn if cfg.is_moe else 0,
+    return {"attention": 0 if cfg.use_mla else n_attn,
+            "moe_gemm": 3 * (len(kinds) - len(head)) if cfg.is_moe else 0,
             "rglru_scan": kinds.count("rglru"),
             "rwkv6_scan": kinds.count("rwkv6")}
 
@@ -1627,11 +1705,11 @@ def _routing_at(cfg, params, f, served, chunks, i, *, dtype, kv_dtype,
         next(steps)
     finally:
         moe._router = router
-    return seen[-cfg.num_layers:]
+    return seen[-(forward_launches(cfg)["moe_gemm"] // 3):]
 
 
 def plain_check(cfg, params, eng, flows, chunks, *, dtype, kv_dtype=None,
-                gate=True):
+                gate=True, tops=None):
     """Teacher-forced plain path on the card: each flow's prompt in the
     engine's own prefill ``chunks`` (MoE capacity depends on a call's token
     count; recurrent states cross the same chunk boundaries), then its
@@ -1639,7 +1717,9 @@ def plain_check(cfg, params, eng, flows, chunks, *, dtype, kv_dtype=None,
     ``kernel_backend="plain"``; every served token must be the plain argmax
     or within LOGIT_MARGIN of it (``gate``; otherwise the gaps are only
     measured).  For MoE, a token outside the margin is first traced to a
-    routing flip or not.  Returns (exact matches, tokens, largest gap)."""
+    routing flip or not.  A ``tops`` dict is filled with the plain argmax
+    of each scored position, keyed (flow id, token index).  Returns (exact
+    matches, tokens, largest gap)."""
     exact = total = 0
     worst, at = 0.0, None
     for f in flows:
@@ -1650,6 +1730,8 @@ def plain_check(cfg, params, eng, flows, chunks, *, dtype, kv_dtype=None,
         for i, (t, logits) in enumerate(zip(served, steps)):
             lg = logits[0].float()
             gap = (lg.max() - lg[t]).item()
+            if tops is not None:
+                tops[(f["id"], i)] = int(lg.argmax())
             exact += int(gap == 0.0)
             total += 1
             if gap > worst:
@@ -1669,29 +1751,33 @@ def plain_check(cfg, params, eng, flows, chunks, *, dtype, kv_dtype=None,
     return exact, total, worst
 
 
-def plain_disagreement(cfg, params, params32, eng, flows, chunks):
+def plain_disagreement(cfg, params, params32, eng, flows, chunks, tops=None):
     """The plain path against itself, teacher-forced on each flow's served
     tokens: with the prompt in the engine's chunks (bf16) as the first
-    evaluation, and as the second the prompt in one call (bf16: the same
-    function, only the rounding differs) or the same chunks in f32
-    (``params32``, weights from the same seed).  Returns the largest gap of
-    the first's argmax under each second's logits: (bf16 noise floor, bf16
-    vs f32)."""
-    floor = vs_f32 = 0.0
+    evaluation (or its argmaxes ``tops``, as ``plain_check`` fills them),
+    and as the second the prompt in one call (bf16: the same function, only
+    the rounding differs, and for MoE the capacity a call's token count
+    sets) or the same chunks in f32 (``params32``, weights from the same
+    seed; None skips it).  Returns the largest gap of the first's argmax
+    under each second's logits: (bf16 noise floor, bf16 vs f32 or None)."""
+    floor, vs_f32 = 0.0, None if params32 is None else 0.0
     for f in flows:
         served, fc = eng.output_tokens(f["id"]), chunks[f["id"]]
         kw = dict(kv_dtype=None, backend="plain")
-        a = _teacher_forced(cfg, params, f, served, fc, dtype=torch.bfloat16,
-                            **kw)
+        a = [None] * len(served) if tops is not None else _teacher_forced(
+            cfg, params, f, served, fc, dtype=torch.bfloat16, **kw)
         b = _teacher_forced(cfg, params, f, served, None,
                             dtype=torch.bfloat16, **kw)
-        c = _teacher_forced(cfg, params32, f, served, fc,
-                            dtype=torch.float32, **kw)
-        for la, lb, lc in zip(a, b, c):
-            top = la[0].float().argmax()
-            lb, lc = lb[0].float(), lc[0].float()
+        c = [None] * len(served) if params32 is None else _teacher_forced(
+            cfg, params32, f, served, fc, dtype=torch.float32, **kw)
+        for i, (la, lb, lc) in enumerate(zip(a, b, c)):
+            top = tops[(f["id"], i)] if la is None else \
+                la[0].float().argmax()
+            lb = lb[0].float()
             floor = max(floor, (lb.max() - lb[top]).item())
-            vs_f32 = max(vs_f32, (lc.max() - lc[top]).item())
+            if lc is not None:
+                lc = lc[0].float()
+                vs_f32 = max(vs_f32, (lc.max() - lc[top]).item())
     return floor, vs_f32
 
 
@@ -1726,6 +1812,11 @@ def _init(arch):
              if cfg.num_heads else
              f"WKV heads {cfg.d_model // cfg.ssm_head_dim} of "
              f"{cfg.ssm_head_dim}")
+    if cfg.use_mla:
+        heads = (f"MLA heads {cfg.num_heads}, latent {cfg.kv_lora_rank}, "
+                 f"qk {cfg.qk_nope_head_dim} + {cfg.qk_rope_head_dim} rope, "
+                 f"v {cfg.v_head_dim}; {cfg.first_k_dense_layers} dense head "
+                 f"layer(s) of d_ff {cfg.dense_d_ff}")
     if cfg.layer_pattern:
         heads += (f" window {cfg.sliding_window}, pattern "
                   f"{cfg.layer_pattern} x {cfg.pattern_repeats} + "
@@ -1793,9 +1884,11 @@ def bf16_serve(cfg, params):
         + "; scheduler-clock TTFT (sim s): "
         + json.dumps(serve_stats["ttft_sim_s"]))
     gate = cfg.name not in F32_TOKEN_CHECK
+    tops = None if gate else {}
     t0 = time.perf_counter()
     exact, total, worst = plain_check(cfg, params, eng, flows, chunks,
-                                      dtype=torch.bfloat16, gate=gate)
+                                      dtype=torch.bfloat16, gate=gate,
+                                      tops=tops)
     log(f"[check] {label} served tokens vs plain path: {exact}/{total} "
         f"exact argmax ({exact / total:.4f}), largest gap {worst:.4f} "
         f"(margin {LOGIT_MARGIN}"
@@ -1805,7 +1898,8 @@ def bf16_serve(cfg, params):
     serve_stats.update(plain_exact=exact, plain_total=total,
                        plain_worst_gap=worst, plain_gated=gate)
     if not gate:
-        serve_stats.update(bf16_gate(cfg, params, eng, flows, chunks, worst))
+        serve_stats.update(bf16_gate(cfg, params, eng, flows, chunks, worst,
+                                     tops))
     del eng
     _release()
     return serve_stats
@@ -1855,33 +1949,40 @@ def faulty_serve_gap(cfg, params, flows, plant):
     return worst
 
 
-def bf16_gate(cfg, params, eng, flows, chunks, worst):
+def bf16_gate(cfg, params, eng, flows, chunks, worst, tops):
     """The bf16 gate of an F32_TOKEN_CHECK family: the kernel path's
     largest gap must be within the plain path's own noise floor (the prompt
     in the engine's chunks vs in one call) plus LOGIT_MARGIN.  A second
     witness of the ill-conditioning is measured (the plain path in bf16
-    against the plain path in f32 on the same tokens), and the gate's power:
-    serves with a planted WKV fault (WKV_FAULTS), whose largest gap must
-    exceed what the gate accepts."""
+    against the plain path in f32 on the same tokens) where the f32 weights
+    fit beside the bf16 ones (not deepseek-v2-lite's 63 GB beside 31), and
+    for rwkv6 the gate's power: serves with a planted WKV fault
+    (WKV_FAULTS), whose largest gap must exceed what the gate accepts (the
+    expert GEMM's planted faults are the kernel cases')."""
     from repro_torch.models import init_params
     label = f"{cfg.name} bf16"
-    params32 = init_params(cfg, seed=SEED, dtype=torch.float32,
-                           device="cuda")
+    params32 = None if cfg.name == DS_ARCH else init_params(
+        cfg, seed=SEED, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
     floor, vs_f32 = plain_disagreement(cfg, params, params32, eng, flows,
-                                       chunks)
+                                       chunks, tops)
     del params32
     _release()
     limit = floor + LOGIT_MARGIN
     log(f"[check] {label}: the plain path against itself lands {floor:.4f} "
         f"apart at its largest gap (prompt in the engine's chunks vs in one "
-        f"call), and {vs_f32:.4f} apart in bf16 vs f32 (the same chunks); "
-        f"the kernel path's {worst:.4f} must be within {floor:.4f} plus the "
-        f"margin ({limit:.4f})")
+        f"call), and "
+        + ("(not measured)" if vs_f32 is None else f"{vs_f32:.4f}")
+        + f" apart in bf16 vs f32 (the same chunks); the kernel path's "
+        f"{worst:.4f} must be within {floor:.4f} plus the margin "
+        f"({limit:.4f}); {time.perf_counter() - t0:.1f} s")
     if worst > limit:
         raise AssertionError(
             f"[{label}] the kernel path's largest gap {worst:.4f} exceeds "
             f"the plain path's own {floor:.4f} plus the margin "
             f"{LOGIT_MARGIN}")
+    if cfg.name != RWKV_ARCH:
+        return dict(plain_noise_floor_gap=floor, plain_bf16_vs_f32_gap=vs_f32)
     faults = {}
     for name, plant in WKV_FAULTS:
         t0 = time.perf_counter()
@@ -2765,13 +2866,15 @@ def dual_phases(cfg, params, n_proactive):
 def full_width_serve_phase(arch):
     """``arch`` at full width, bf16: qwen2-moe-a2.7b (every MoE layer's
     three expert products through the grouped GEMM kernel),
-    recurrentgemma-9b (RG-LRU layers through ``rglru_scan``, local attention
-    at head_dim 256; then [dual] with 4 flows) or rwkv6-1.6b (WKV6 through
-    ``rwkv6_scan``); for the families of F32_TOKEN_CHECK, the f32 serve
-    whose tokens are held to the plain path."""
+    deepseek-v2-lite-16b (MLA on its plain path, a dense head layer, then
+    26 MoE layers through the grouped GEMM kernel), recurrentgemma-9b
+    (RG-LRU layers through ``rglru_scan``, local attention at head_dim 256;
+    then [dual] with 4 flows) or rwkv6-1.6b (WKV6 through ``rwkv6_scan``);
+    for the families of F32_TOKEN_CHECK, the f32 serve whose tokens are
+    held to the plain path."""
     cfg, params = _init(arch)
     stats = bf16_serve(cfg, params)
-    if arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):  # the expert GEMM's, scans'
+    if arch in (MOE_ARCH, DS_ARCH, RG_ARCH, RWKV_ARCH):  # GEMM's, scans'
         stats["profile"] = profile_serving(cfg, params)
     if arch == RG_ARCH:  # the RG-LRU state and the window's handoff
         stats["dual"] = dual_phases(cfg, params, 2)
@@ -2837,7 +2940,7 @@ def main():
     examples = examples_phase()
     phase_done("examples")
     other = {}
-    for arch in (MOE_ARCH, RG_ARCH, RWKV_ARCH):
+    for arch in (MOE_ARCH, DS_ARCH, RG_ARCH, RWKV_ARCH):
         _release()  # the previous path's weights and pools
         other[arch] = full_width_serve_phase(arch)
         phase_done(arch)

@@ -293,6 +293,15 @@ class TorchRealBackend(ExecutionBackend):
     counts the first-seen shape keys the reference would have compiled, and
     ``decode_device_calls``/``host_syncs`` count as in the reference.
 
+    ``kernel_backend`` picks each layer's route by its config, not at run
+    time.  MLA configs (deepseek-v2) take ``"cuda"`` too: their attention
+    runs the plain MLA functions of ``models.attention`` under either
+    backend (the reference's XLA path, its only one for MLA; its refusal of
+    ``"pallas"`` for MLA is about its attention kernels, which the port's
+    ``"plain"`` mode already skips), and their expert products run
+    ``moe_gemm``.  An int8 pool is refused for MLA, as the reference
+    refuses it (``kv_supports_int8``).
+
     The reference's two measurable baselines:
 
     * ``in_pool_prefill=False``: each prompt prefills into a B=1 scratch
@@ -328,11 +337,15 @@ class TorchRealBackend(ExecutionBackend):
         import numpy as np
         import torch
         from repro_torch.models import cache_bytes, check_supported, \
-            init_cache
+            init_cache, kv_supports_int8
         from repro_torch.models.transformer import KERNEL_BACKENDS
         check_supported(cfg)
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8': {kv_dtype}")
+        if kv_dtype == "int8" and not kv_supports_int8(cfg):
+            raise NotImplementedError(
+                "int8 KV quantization needs the per-(slot, kv head) k/v ring "
+                "layout; MLA configs cache a headless latent")
         if kernel_backend not in KERNEL_BACKENDS:
             raise ValueError(f"kernel_backend must be one of "
                              f"{KERNEL_BACKENDS}: {kernel_backend!r}")

@@ -1,8 +1,10 @@
-"""Attention reference math: chunked flash-style prefill and cache decode.
+"""Attention reference math: chunked flash-style prefill, cache decode, MLA.
 
-PyTorch port of the GQA part of ``repro.models.attention``.  These plain
-functions are the model's ``kernel_backend="plain"`` path; the CUDA kernels
-in ``repro_torch.kernels`` compute the same masks and online softmax.
+PyTorch port of ``repro.models.attention``.  The GQA functions are the
+model's ``kernel_backend="plain"`` path; the CUDA kernels in
+``repro_torch.kernels`` compute the same masks and online softmax.  The MLA
+functions (DeepSeek-V2) have no kernel, here as in the reference: they are
+the route of MLA attention under either kernel backend.
 
 All attention math accumulates in f32.  Shapes:
   q: (B, Sq, Hq, hd)    k/v: (B, Skv, Hkv, hd)   with Hq % Hkv == 0 (GQA).
@@ -127,3 +129,58 @@ def decode_attention(q, k_cache, v_cache, pos_kv, cur_pos, *,
     p = torch.softmax(s + bias, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
     return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+# -- MLA (DeepSeek-V2) -------------------------------------------------------
+def mla_expand_kv(c_kv, p):
+    """Latent -> per-head K_nope, V.  c_kv: (B, S, r)."""
+    k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhd->bshd", c_kv, p["w_uv"])
+    return k_nope, v
+
+
+def mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, p, *, pos_q, pos_kv,
+                          window=None, q_chunk=512, kv_chunk=512):
+    """MLA attention for C > 1 tokens (the expanded form).
+
+    q_nope: (B, S, H, dn)  q_rope: (B, S, H, dr)  c_kv: (B, Skv, r)
+    k_rope: (B, Skv, 1, dr).  V's head dim (dv) is padded up to dn + dr for
+    ``chunked_attention`` and the result sliced back: (B, S, H, dv)."""
+    B, S, H, dn = q_nope.shape
+    k_nope, v = mla_expand_kv(c_kv, p)  # (B, Skv, H, dn), (B, Skv, H, dv)
+    k_rope_b = k_rope.expand(B, k_rope.shape[1], H, q_rope.shape[-1])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    dv, dqk = v.shape[-1], q.shape[-1]
+    if dv < dqk:
+        v = F.pad(v, (0, dqk - dv))
+    out = chunked_attention(q, k, v, causal=True, window=window, pos_q=pos_q,
+                            pos_kv=pos_kv, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+    return out[..., :dv]
+
+
+def mla_decode_attention(q_nope, q_rope, c_cache, kr_cache, p, pos_kv,
+                         cur_pos, *, window=None):
+    """Absorbed MLA decode: scores and reads in the latent space, in f32,
+    at scale 1/sqrt(dn + dr).
+
+    q_nope: (B, H, dn)  q_rope: (B, H, dr)  c_cache: (B, S, r)
+    kr_cache: (B, S, dr).  Returns the per-head context (B, H, dv).  The
+    f32 copy of ``c_cache`` lives for this call only."""
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    c = c_cache.float()
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), p["w_uk"].float())
+    s = torch.einsum("bhr,bsr->bhs", q_lat, c)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
+    s = s * scale
+    cur = cur_pos[:, None]
+    ok = (pos_kv >= 0) & (pos_kv <= cur)
+    if window is not None:
+        ok = ok & (pos_kv > cur - window)
+    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, :]
+    pr = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", pr, c)
+    out = torch.einsum("bhr,rhd->bhd", ctx_lat, p["w_uv"].float())
+    return out.to(q_nope.dtype)

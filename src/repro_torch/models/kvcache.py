@@ -1,8 +1,9 @@
 """Per-layer decode/prefill state (KV rings, recurrent states) and slot-pool
 helpers.
 
-PyTorch port of ``repro.models.kvcache`` for the attention, RG-LRU and
-RWKV6 layer kinds.  The cache is the same nested dict as the reference's::
+PyTorch port of ``repro.models.kvcache`` for the attention (GQA or MLA),
+RG-LRU and RWKV6 layer kinds.  The cache is the same nested dict as the
+reference's::
 
     cache = {
       "pos":   (B,) int32     next absolute position to write,
@@ -13,7 +14,9 @@ RWKV6 layer kinds.  The cache is the same nested dict as the reference's::
     }
 
 Attention state is a ring buffer of ``alloc`` slots; ``slot_pos`` stores each
-slot's absolute position (-1 = empty).  Recurrent state (RG-LRU ``h`` and
+slot's absolute position (-1 = empty).  A GQA ring holds ``k``/``v``; an
+MLA ring holds the latent ``c`` (B, alloc, kv_lora_rank) and the shared
+RoPE key ``kr`` (B, alloc, qk_rope_head_dim).  Recurrent state (RG-LRU ``h`` and
 ``conv``, RWKV6 ``wkv``, ``shift_tm`` and ``shift_cm``) has no ring axis: the
 helpers move it whole, row by row, and ``reset_row`` zeroes it.
 
@@ -35,9 +38,16 @@ import torch
 _QUANT_EPS = 1e-8
 
 # ring payload: leaves that carry the ring (alloc) axis right after batch
-_RING_PAYLOAD = frozenset({"k", "v", "slot_pos", "k_scale", "v_scale"})
+_RING_PAYLOAD = frozenset({"k", "v", "c", "kr", "slot_pos", "k_scale",
+                           "v_scale"})
 # attention payload: left stale (not rewritten) by reset_row
-_ATTN_PAYLOAD = frozenset({"k", "v", "k_scale", "v_scale"})
+_ATTN_PAYLOAD = frozenset({"k", "v", "c", "kr", "k_scale", "v_scale"})
+
+
+def kv_supports_int8(cfg) -> bool:
+    """int8 KV quantization covers the k/v ring layout; an MLA cache holds a
+    latent (``c``/``kr``) with no per-head scale axis."""
+    return not cfg.use_mla
 
 
 def quantize_kv(x: torch.Tensor):
@@ -86,11 +96,19 @@ def init_layer_state(cfg, kind: str, batch: int, max_len: int,
                                         device=device)}
     if kind != "attn":
         raise ValueError(kind)
-    if cfg.use_mla:
-        raise NotImplementedError(
-            "MLA caches are not ported yet (ROADMAP.md queue 1, item 8)")
     quant = kv_dtype == "int8"
     alloc = attn_alloc_len(cfg, max_len, window)
+    if cfg.use_mla:
+        if quant:
+            raise NotImplementedError(
+                "int8 KV quantization is per-(slot, kv head); MLA caches "
+                "a latent without a head axis (kv_supports_int8)")
+        return {"c": torch.zeros((batch, alloc, cfg.kv_lora_rank),
+                                 dtype=dtype, device=device),
+                "kr": torch.zeros((batch, alloc, cfg.qk_rope_head_dim),
+                                  dtype=dtype, device=device),
+                "slot_pos": torch.full((batch, alloc), -1,
+                                       dtype=torch.int32, device=device)}
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
     payload = torch.int8 if quant else dtype
     st = {

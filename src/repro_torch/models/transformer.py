@@ -2,14 +2,15 @@
 decode.
 
 PyTorch port of ``repro.models.transformer``.  Serving covers the
-attention family (GQA decoders with a dense or MoE FFN: llama, qwen2-moe),
-the hybrid RG-LRU + local attention family (recurrentgemma) and the
-attention-free RWKV6 family.  One code path (``extend``) covers chunked
-prefill (C tokens against an existing cache) and decode (C == 1).  The
-cacheless training ``forward`` covers the same families (dense or MoE
-attention, RG-LRU hybrids, RWKV6) with the MoE aux loss summed over the
-layers.  Layers run in the reference's order: the unrolled ``head``, the
-repeated ``blocks`` pattern, then the unrolled ``tail``.
+attention family (GQA decoders with a dense or MoE FFN: llama, qwen2-moe;
+MLA with dense head layers before an MoE trunk: deepseek-v2), the hybrid
+RG-LRU + local attention family (recurrentgemma) and the attention-free
+RWKV6 family.  One code path (``extend``) covers chunked prefill (C tokens
+against an existing cache) and decode (C == 1).  The cacheless training
+``forward`` covers the same families (dense or MoE attention, MLA, RG-LRU
+hybrids, RWKV6) with the MoE aux loss summed over the layers.  Layers run
+in the reference's order: the unrolled ``head``, the repeated ``blocks``
+pattern, then the unrolled ``tail``.
 
 Differences from the reference, all forced by the frameworks:
 
@@ -34,7 +35,9 @@ launch the CUDA kernels on CUDA tensors and fall to their plain versions
 only for CPU tensors; ``"plain"`` runs ``models.attention`` (differentiated
 by autograd in training), ``torch.einsum`` and ``models.ssm``'s scans.
 Training runs the expert products and the scans on the plain path under
-either backend (``check_trainable``).
+either backend (``check_trainable``).  MLA attention has no kernel (the
+reference's XLA path is its only one): it runs ``models.attention``'s MLA
+functions under either backend, in serving and in training.
 """
 from __future__ import annotations
 
@@ -43,7 +46,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
-from repro_torch.models.attention import chunked_attention, decode_attention
+from repro_torch.models.attention import (chunked_attention, decode_attention,
+                                          mla_decode_attention,
+                                          mla_prefill_attention)
 from repro_torch.models.layers import (apply_rope, embed_tokens, lm_logits,
                                        mlp, rms_norm)
 from repro_torch.models.moe import moe_ffn
@@ -74,27 +79,20 @@ def layout(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port covers decoders built of attention (dense or all-MoE FFN),
-    RG-LRU and RWKV6 layers; every other family raises, naming the
-    ROADMAP.md item that ports it."""
+    """The port covers decoders built of attention (GQA or MLA; a dense or
+    MoE FFN, dense head layers before an MoE trunk), RG-LRU and RWKV6
+    layers; the encoder-decoder and vision forms raise, naming the
+    ROADMAP.md item that ports them."""
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and vision forms are not ported yet "
             "(ROADMAP.md queue 1, item 10)")
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
-    if cfg.is_moe and cfg.first_k_dense_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: dense head layers before the MoE trunk are not "
-            "ported yet (ROADMAP.md queue 1, item 8)")
     head, pattern, _, tail = layout(cfg)
     unknown = set(head + pattern + tail) - set(LAYER_KINDS)
     if unknown:
         raise NotImplementedError(
-            f"{cfg.name}: {sorted(unknown)} layers are not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
+            f"{cfg.name}: no port of {sorted(unknown)} layers (the "
+            "reference has none either)")
 
 
 # ============================ initialization ================================
@@ -152,6 +150,17 @@ def _init_attn(cfg, R, gen, dtype, device):
     d = cfg.d_model
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
+    if cfg.use_mla:
+        dn, dr, dv, r = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                         cfg.v_head_dim, cfg.kv_lora_rank)
+        return {"w_q": _stacked(gen, R, (d, Hq * (dn + dr)), 0.02, dtype,
+                                device),
+                "w_dkv": _stacked(gen, R, (d, r), 0.02, dtype, device),
+                "w_krope": _stacked(gen, R, (d, dr), 0.02, dtype, device),
+                "w_uk": _stacked(gen, R, (r, Hq, dn), 0.02, dtype, device),
+                "w_uv": _stacked(gen, R, (r, Hq, dv), 0.02, dtype, device),
+                "wo": _stacked(gen, R, (Hq * dv, d), out_std, dtype, device),
+                "kv_norm": _full(R, (r,), 1.0, dtype, device)}
     attn = {"wq": _stacked(gen, R, (d, Hq * hd), 0.02, dtype, device),
             "wk": _stacked(gen, R, (d, Hkv * hd), 0.02, dtype, device),
             "wv": _stacked(gen, R, (d, Hkv * hd), 0.02, dtype, device),
@@ -206,9 +215,11 @@ def _init_rglru(cfg, R, gen, dtype, device):
             "w_out": nrm((W, d), out_std)}
 
 
-def _init_layer(cfg, kind, R, gen, dtype, device):
+def _init_layer(cfg, kind, R, gen, dtype, device, dense_head=False):
     """One block of ``kind``: with a leading repeats axis of R (stacked
-    ``blocks``), or unrolled (``R=None``: ``head`` and ``tail``)."""
+    ``blocks``), or unrolled (``R=None``: ``head`` and ``tail``).  A
+    ``dense_head`` layer (one of the first ``first_k_dense_layers``) has a
+    dense FFN, of ``dense_d_ff`` in an MoE config."""
     d = cfg.d_model
     p = {"norm1": {"w": _full(R, (d,), 1.0, dtype, device)},
          "norm2": {"w": _full(R, (d,), 1.0, dtype, device)}}
@@ -219,10 +230,11 @@ def _init_layer(cfg, kind, R, gen, dtype, device):
     else:  # rwkv6: its FFN is the channel mix inside "tm"
         p["tm"] = _init_rwkv6(cfg, R, gen, dtype, device)
         return p
-    if cfg.is_moe:
+    if cfg.is_moe and not dense_head:
         p["moe"] = _init_moe(cfg, R, gen, dtype, device)
     else:
-        p["ffn"] = _init_ffn(cfg, R, gen, dtype, device, cfg.d_ff)
+        p["ffn"] = _init_ffn(cfg, R, gen, dtype, device,
+                             cfg.dense_d_ff if cfg.is_moe else cfg.d_ff)
     return p
 
 
@@ -257,7 +269,8 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     for sec, kinds in (("head", head), ("tail", tail)):
         if kinds:
             tree[sec] = {str(i): _init_layer(cfg, kind, None, gen, dtype,
-                                             device)
+                                             device,
+                                             dense_head=sec == "head")
                          for i, kind in enumerate(kinds)}
     tree["blocks"] = {str(pi): _init_layer(cfg, kind, repeats, gen, dtype,
                                            device)
@@ -266,11 +279,26 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
 
 
 # ============================ block application =============================
+def _mla_project(cfg, ap, x, pos):
+    """MLA's projections of (B, S, d) at positions ``pos``: q split into
+    its no-RoPE and RoPE parts (B, S, H, dn), (B, S, H, dr), the normed
+    latent (B, S, r) and the shared RoPE key (B, S, 1, dr)."""
+    B, S, _ = x.shape
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ ap["w_q"]).reshape(B, S, cfg.num_heads, dn + dr)
+    q_rope = apply_rope(q[..., dn:], pos, cfg.rope_theta)
+    c_kv = rms_norm(x @ ap["w_dkv"], ap["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((x @ ap["w_krope"])[:, :, None, :], pos,
+                        cfg.rope_theta)
+    return q[..., :dn], q_rope, c_kv, k_rope
+
+
 def _attn_mix_extend(cfg, ap, x, st, ctx):
     """Self-attention of a C-token chunk against one layer's ring cache.
 
-    Writes the chunk's K/V into the cache (in place) first, then attends with
-    position masks; C == 1 uses the single-token decode path."""
+    Writes the chunk's K/V (MLA: its latent and RoPE key) into the cache
+    (in place) first, then attends with position masks; C == 1 uses the
+    single-token decode path (MLA: the absorbed form)."""
     B, C, d = x.shape
     window = ctx.get("window") or cfg.sliding_window
     pos = ctx["pos"]  # (B, C) int32 absolute positions
@@ -288,6 +316,21 @@ def _attn_mix_extend(cfg, ap, x, st, ctx):
             val = torch.where(m, val, keep)
         buf[bidx, slots] = val
 
+    if cfg.use_mla:
+        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, x, pos)
+        write(st["c"], c_kv)
+        write(st["kr"], k_rope[:, :, 0])
+        write(st["slot_pos"], pos)
+        if C == 1:
+            out = mla_decode_attention(q_nope[:, 0], q_rope[:, 0], st["c"],
+                                       st["kr"], ap, st["slot_pos"],
+                                       pos[:, 0], window=window)[:, None]
+        else:
+            out = mla_prefill_attention(
+                q_nope, q_rope, st["c"], st["kr"][:, :, None], ap, pos_q=pos,
+                pos_kv=st["slot_pos"], window=window, q_chunk=ctx["q_chunk"],
+                kv_chunk=ctx["kv_chunk"])
+        return out.reshape(B, C, -1) @ ap["wo"]
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ ap["wq"]
     k = x @ ap["wk"]
@@ -408,27 +451,35 @@ def _run_trunk(cfg, layers, x, cache, ctx):
 # ============================ training forward ==============================
 def check_trainable(cfg) -> None:
     """``forward`` trains every family that ``check_supported`` accepts:
-    dense or MoE attention, RG-LRU hybrids and RWKV6.  MLA and dense head
-    layers (ROADMAP.md queue 1, item 8) and the enc-dec and vision forms
-    (item 10) raise, as they do in serving.
+    dense or MoE attention, MLA with dense head layers, RG-LRU hybrids and
+    RWKV6.  The enc-dec and vision forms (ROADMAP.md queue 1, item 10)
+    raise, as they do in serving.
 
     Kernels in training are fixed by mode, not chosen at run time: with
-    ``kernel_backend="cuda"`` every attention layer runs the CUDA
+    ``kernel_backend="cuda"`` every GQA attention layer runs the CUDA
     ``flash_attention`` forward and ``flash_attention_bwd`` backward
-    (``ops.flash_attention_train``), while the MoE expert products and the
-    RG-LRU / WKV6 recurrences always run their plain, autograd-
-    differentiated forms, as the reference's training forward reaches no
-    Pallas kernel: ``moe_gemm``, ``rglru_scan`` and ``rwkv6_scan`` are
-    forward-only kernels with no backward (item 11 (c))."""
+    (``ops.flash_attention_train``), while MLA attention (no kernel, as in
+    the reference), the MoE expert products and the RG-LRU / WKV6
+    recurrences always run their plain, autograd-differentiated forms, as
+    the reference's training forward reaches no Pallas kernel:
+    ``moe_gemm``, ``rglru_scan`` and ``rwkv6_scan`` are forward-only
+    kernels with no backward (item 11 (c))."""
     check_supported(cfg)
 
 
 def _attn_mix_train(cfg, ap, x, ctx):
-    """Cacheless causal (or windowed) GQA self-attention over the whole
-    sequence (``repro.models.transformer._attn_mix_train``)."""
+    """Cacheless causal (or windowed) GQA or MLA self-attention over the
+    whole sequence (``repro.models.transformer._attn_mix_train``)."""
     B, S, d = x.shape
     window = ctx.get("window") or cfg.sliding_window
     pos = ctx["positions"]  # (S,)
+    if cfg.use_mla:
+        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, x, pos)
+        out = mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, ap,
+                                    pos_q=pos, pos_kv=pos, window=window,
+                                    q_chunk=ctx["q_chunk"],
+                                    kv_chunk=ctx["kv_chunk"])
+        return out.reshape(B, S, -1) @ ap["wo"]
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ ap["wq"]
     k = x @ ap["wk"]

@@ -387,15 +387,15 @@ def test_moe_gemm_rows_do_not_depend_on_capacity(cuda, dtype):
     _assert_close(full, ref.moe_gemm(x[:, :42], w), dtype)
 
 
-@pytest.mark.parametrize("C", [16, 42])
+@pytest.mark.parametrize("E,C", [(60, 16), (60, 42), (64, 16), (64, 60)])
 @pytest.mark.parametrize("d,f", [(2048, 1408), (1408, 2048)])
-def test_moe_gemm_kernel_at_the_serve_shapes(cuda, d, f, C):
-    """qwen2-moe-a2.7b's expert GEMMs at full width (60 experts, gate / up
-    and down projections) in bf16, x on the capacity slice of the spill
-    buffer: a decode pool and a 512-token prefill bucket."""
+def test_moe_gemm_kernel_at_the_serve_shapes(cuda, d, f, E, C):
+    """qwen2-moe-a2.7b's (60 experts) and deepseek-v2-lite-16b's (64)
+    expert GEMMs at full width (gate / up and down projections) in bf16, x
+    on the capacity slice of the spill buffer: a 16-row decode pool and a
+    512-token prefill bucket (capacity 42 at top-4, 60 at top-6)."""
     g = torch.Generator(device=cuda)
-    g.manual_seed(C + d)
-    E = 60
+    g.manual_seed(C + d + E)
     x = torch.randn((E, C + 1, d), generator=g, device=cuda).bfloat16()
     w = (torch.randn((E, d, f), generator=g, device=cuda) * 0.02).bfloat16()
     got = ops.moe_gemm(x[:, :C], w)
@@ -788,7 +788,9 @@ SERVE_KERNELS = {
     "recurrentgemma-9b": {"decode_attention", "flash_attention_pool",
                           "rglru_scan"},
     TAIL: {"decode_attention", "flash_attention_pool", "rglru_scan"},
-    "rwkv6-1.6b": {"rwkv6_scan"}}
+    "rwkv6-1.6b": {"rwkv6_scan"},
+    # MLA attention has no kernel: only the expert GEMM
+    "deepseek-v2-lite-16b": {"moe_gemm"}}
 
 
 @pytest.mark.parametrize("arch", sorted(SERVE_KERNELS))
@@ -1039,20 +1041,22 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "starcoder2-7b",
                                   "qwen2-moe-a2.7b", "recurrentgemma-9b",
-                                  TAIL, "rwkv6-1.6b"])
+                                  TAIL, "rwkv6-1.6b",
+                                  "deepseek-v2-lite-16b"])
 def test_tiny_train_step_through_kernels_matches_plain_path(cuda, arch):
     """A tiny f32 model's loss and gradients with kernel_backend="cuda"
-    (each attention layer: one forward launch, one more in remat's
-    recompute, one backward launch; the expert GEMM and the scans none,
-    training runs them on the plain path) against the plain path on the
-    same card."""
+    (each GQA attention layer: one forward launch, one more in remat's
+    recompute, one backward launch; MLA attention, the expert GEMM and the
+    scans none, training runs them on the plain path) against the plain
+    path on the same card."""
     from repro_torch.configs import get_tiny_config
     from repro_torch.models import init_params, layout
     from repro_torch.train.train_loop import loss_and_grads
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = tiny(get_tiny_config, arch)
     head, pattern, repeats, tail = layout(cfg)
-    n_attn = (head + pattern * repeats + tail).count("attn")
+    n_attn = 0 if cfg.use_mla else \
+        (head + pattern * repeats + tail).count("attn")
     params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 81))).to(cuda)
@@ -1196,7 +1200,8 @@ def test_staged_handoff_race_equals_sequential_twin(cuda):
 
 
 @pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b",
-                                  "recurrentgemma-9b", "rwkv6-1.6b"])
+                                  "recurrentgemma-9b", "rwkv6-1.6b",
+                                  "deepseek-v2-lite-16b"])
 def test_staged_prefill_chunks_issue_no_host_sync(cuda, arch):
     """A staged prefill's chunks (the prompt's pinned upload, the staging
     cache, every bucket's forward, the chunked scans among them, and the
@@ -1257,3 +1262,36 @@ def test_tiny_dual_serve_on_card_equals_single_lane(cuda, lane):
         assert eng.backend.validate() == []
         out[dual] = [eng.output_tokens(i) for i in range(3)]
     assert out[True] == out[False]
+
+
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b",
+                                  "deepseek-v2-lite-16b",
+                                  "recurrentgemma-9b", "rwkv6-1.6b"])
+def test_masked_decode_run_issues_no_host_sync(cuda, arch):
+    """A fused, masked decode run over a pool view bounded in rows and
+    ``kv_limit`` (the engine's elastic decode dispatch) issues no host sync
+    in every served family: the MoE dispatch and combine, MLA's RoPE at
+    width 8 (64 at full width) and its latent casts among them."""
+    from repro_torch.models import decode_run, extend, init_cache, \
+        slice_rows, write_rows_prefix
+    cfg, params = _tiny_llama(cuda, arch)
+    pool = init_cache(cfg, params, 4, 64, torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (4, 12))).to(cuda)
+    extend(cfg, params, pool, toks)
+    active = torch.tensor([True, False, True, True], device=cuda)
+    last = toks[:, -1].to(torch.int32)
+    for check in (False, True):  # a warm-up run first
+        sub = slice_rows(pool, 4)
+        if check:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            block, last, sub = decode_run(cfg, params, sub, last, active, 3,
+                                          kv_limit=32, full_alloc=64)
+            write_rows_prefix(pool, sub, 4, 32, 64)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert block.shape == (3, 4)
+    assert pool["pos"].tolist() == [18, 12, 18, 18]

@@ -8,12 +8,16 @@ kernel-vs-oracle tolerance (tests/test_kernels.py); 1e-5 for the MoE layer,
 whose routing, dispatch and combine are the same arithmetic in both
 frameworks and differ only in summation order.  The MoE family's training
 forward, loss and gradients with dropped assignments are held to the
-reference at the limits of tests/torch_train_cases.py."""
+reference at the limits of tests/torch_train_cases.py, and the tiny
+deepseek-v2-lite-16b (MLA, a dense head layer, 4 experts top-2 and a
+shared one) served through the port's engine is held to the reference's
+engine (tests/torch_engine_cases.py)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_engine_cases as tec
 import torch_train_cases as ttc
 
 from repro.configs import get_tiny_config as j_tiny
@@ -197,3 +201,15 @@ def test_moe_grads_with_dropped_assignments_match_jax(backend):
     ttc.assert_rel(loss, jloss, ttc.LOSS_REL, "loss")
     ttc.assert_rel(nll, jnll, ttc.LOSS_REL, "nll")
     ttc.assert_grads_match(grads, want)
+
+
+# -- deepseek-v2-lite-16b through the engine -------------------------------------
+# The tiny MLA model (its dense head layer and one MoE layer) served by the
+# port's engine and the reference's on the same weights and trace: equal
+# token streams, traces and stats(), the prefix cache off without a shared
+# system prompt and on (hits copying the latent c / kr rings) with one.
+@pytest.mark.parametrize("kw,shared", [({}, 0), ({"max_fused_steps": 1}, 0),
+                                       ({}, tec.SYSTEM)],
+                         ids=["fused", "per_step", "prefix"])
+def test_deepseek_engine_matches_reference(kw, shared):
+    tec.engine_matches_reference("deepseek-v2-lite-16b", kw, shared)

@@ -1,19 +1,28 @@
 """Recurrent-family test cases shared by the CPU parity tests
 (test_torch_kernels.py, test_torch_models.py, test_torch_engine.py) and the
 on-card tests (test_torch_cuda.py): the tiny configs, including a
-recurrentgemma variant with a tail, and numpy scan inputs made from fixed
-seeds.  Imports no JAX, so the on-card tests run where JAX is absent."""
+recurrentgemma variant with a tail (and a qwen2-moe variant with a dense
+head layer), and numpy scan inputs made from fixed seeds.  Imports no
+JAX, so the on-card tests run where JAX is absent."""
 import numpy as np
 
 # tiny recurrentgemma-9b with the full config's unrolled (R, R) tail, which
 # make_tiny drops (its tiny variant has tail_pattern=())
 TAIL = "recurrentgemma-9b+tail"
 RECURRENT_ARCHS = ["recurrentgemma-9b", TAIL, "rwkv6-1.6b"]
+# tiny qwen2-moe-a2.7b with one dense head layer (dense_d_ff) before its MoE
+# layer: the dense head without MLA, which no config of the registry has
+DENSE_HEAD = "qwen2-moe-a2.7b+dense-head"
 
 
 def tiny(get_tiny_config, arch):
     """The tiny config of ``arch`` from one framework's
-    ``get_tiny_config`` (either framework's: both configs are equal)."""
+    ``get_tiny_config`` (either framework's: both configs are equal), or
+    of one of the variants above."""
+    if arch == DENSE_HEAD:
+        cfg = get_tiny_config("qwen2-moe-a2.7b")
+        return cfg.with_overrides(name=cfg.name + "-dense-head",
+                                  first_k_dense_layers=1)
     if arch != TAIL:
         return get_tiny_config(arch)
     cfg = get_tiny_config("recurrentgemma-9b")

@@ -692,7 +692,7 @@ def bwd_precision(gen):
         ms = with_libs({"flash_attention_bwd": lib}, lambda: cs.time_ms(
             lambda: ops.flash_attention_bwd(*args, window=window)))
         log(f"[bwd_precision] {name} {tag} (timing only): {ms:.4f} ms")
-    _, rows = cs._device_times(lambda: ops.flash_attention_bwd(
+    _, rows, _ = cs._device_times(lambda: ops.flash_attention_bwd(
         *args, window=window))
     log(f"[bwd_precision] {name} as built, by kernel: " + "; ".join(
         f"{k[:40]} {ms:.4f} ms" for k, ms in rows if "flash" in k))
@@ -808,7 +808,7 @@ def rwkv6_sweep(gen):
         log(f"[rwkv6] {tag}" + (" (timing only)" if tag in parts else "")
             + ": " + "; ".join(res) + " ms")
     for n, a in cases:
-        _, rows = cs._device_times(lambda: ops.rwkv6_scan(*a))
+        _, rows, _ = cs._device_times(lambda: ops.rwkv6_scan(*a))
         log(f"[rwkv6] {n} as built, by kernel: " + "; ".join(
             f"{k[:40]} {ms:.4f} ms" for k, ms in rows if "wkv6" in k))
 
@@ -856,7 +856,7 @@ def moe_sweep(gen):
             for n, a in cases])
         log(f"[moe] {tag}: " + "; ".join(res) + " ms")
     for n, a in cases:
-        _, rows = cs._device_times(lambda: ops.moe_gemm(*a))
+        _, rows, _ = cs._device_times(lambda: ops.moe_gemm(*a))
         log(f"[moe] {n} as built, by kernel: " + "; ".join(
             f"{k[:50]} {ms:.4f} ms" for k, ms in rows if "moe" in k))
 
@@ -921,7 +921,7 @@ def rglru_sweep(gen):
             for n, a in cases])
         log(f"[rglru] {tag} (timing only): " + "; ".join(res) + " ms")
     for n, a in cases:
-        _, rows = cs._device_times(lambda: ops.rglru_scan(*a))
+        _, rows, _ = cs._device_times(lambda: ops.rglru_scan(*a))
         log(f"[rglru] {n} as built, by kernel: " + "; ".join(
             f"{k[:40]} {ms:.4f} ms" for k, ms in rows if "rglru" in k))
     B, S, W = 1, 512, 4096

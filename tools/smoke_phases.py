@@ -5,7 +5,10 @@ first (one ``nvcc`` each, in parallel), without the rest of the script:
 
 PHASE is one of
 
+- ``kernels``: the serving kernels' cases (``kernel_phase``);
 - ``flash``: the training flash attention cases (``flash_kernel_phase``);
+- ``serve:ARCH``: ``full_width_serve_phase`` for ARCH (the bf16 serve held
+  to the plain path, and its profile);
 - ``train:ARCH``: ``family_train_phase`` for ARCH (a key of
   ``TRAIN_FAMILIES``), or ``train`` for every family;
 - ``lr:ARCH:LR[,LR...]``: the learning-rate trials of ARCH: for each LR,
@@ -77,7 +80,12 @@ def main(argv):
     for phase in argv:
         t0 = time.perf_counter()
         name, _, rest = phase.partition(":")
-        if name == "flash":
+        if name == "kernels":
+            cs.kernel_phase()
+        elif name == "serve":
+            cs.full_width_serve_phase(rest)
+            cs._release()
+        elif name == "flash":
             cs.flash_kernel_phase()
         elif name == "train":
             for arch in [rest] if rest else list(cs.TRAIN_FAMILIES):
