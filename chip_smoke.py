@@ -56,7 +56,19 @@ the decode pool; the 8-flow trace on ``llama3.2-3b`` and 4 flows on
 showing the two streams' kernels and their overlap) and the reference's
 two baselines (``[baselines]``: the pre-donation and the scratch-cache
 prefill serves, 4 flows each, beside the default), each checked against
-the plain path; then prints the kernel table as JSON and, as its last
+the plain path; then runs the model API's two frontend forms, which the
+serving backends refuse as the reference's do: ``[encdec]``,
+``whisper-tiny`` at full width and depth (a 4-layer encoder over 1500
+random frames, 4 decoder layers with cross attention), 4 rows prefilled
+and decoded 32 steps, and ``[vision]``, ``llava-next-34b`` at full width
+and depth (60 layers, 56/8 heads of 128: G 7), 2880 random patch
+embeddings and a 128-token prompt in one prefill chunk, then 16 decode
+steps, each through the attention kernels with exact launch counts and
+every token held to the plain path (llava's to the plain path's own bf16
+floor plus the margin, a gate that planted attention faults must fail;
+its f32 weights do not fit on the card); both forms also train in
+``[train]`` (whisper whole, llava cut to 4 of 60 layers, batch 1 with
+the frames or patches); then prints the kernel table as JSON and, as its last
 line, ``{"ok": true, "device": {...}}``.  Any failed phase
 raises, and the script exits non-zero without that line — also when no GPU
 is visible or when run outside the repository.  Imports no JAX.
@@ -83,6 +95,8 @@ MOE_ARCH = "qwen2-moe-a2.7b"
 RG_ARCH = "recurrentgemma-9b"
 RWKV_ARCH = "rwkv6-1.6b"
 DS_ARCH = "deepseek-v2-lite-16b"
+WHISPER_ARCH = "whisper-tiny"
+LLAVA_ARCH = "llava-next-34b"
 SEED = 0
 MAX_LEN = 2048
 POOL = 16
@@ -126,6 +140,11 @@ LOGIT_MARGIN = 0.25
 # its bf16 serve is held to that floor plus the margin and its tokens to
 # LOGIT_MARGIN in an f32 serve
 F32_TOKEN_CHECK = (RWKV_ARCH, DS_ARCH)
+# llava-next-34b's f32 weights (137.6 GB) do not fit on the card, and its
+# bf16 serve (60 layers) landed one of 17 tokens 0.2812 below the plain
+# argmax, where the plain path's own bf16 floor was 0.1875 (PERF.md):
+# [vision] holds it to that floor plus the margin, a gate that planted
+# attention faults must fail (VISION_FAULTS)
 # the runs under torch.profiler: one training step, and one prefill chunk
 # and decode segment of each served model (profile_serving).  The serves
 # skip their profiled repeat (the trace's processing took 88-189 s a serve
@@ -156,9 +175,14 @@ TRAIN_LR = 3e-6
 TRAIN_FAMILIES = {MOE_ARCH: dict(num_layers=4),
                   RG_ARCH: dict(num_layers=5, pattern_repeats=1),
                   RWKV_ARCH: {},
-                  DS_ARCH: dict(num_layers=4)}
+                  DS_ARCH: dict(num_layers=4),
+                  WHISPER_ARCH: {},
+                  LLAVA_ARCH: dict(num_layers=4)}
 TRAIN_FAMILY_LR = {MOE_ARCH: 3e-5, RG_ARCH: 3e-5, RWKV_ARCH: 1e-5,
-                   DS_ARCH: 3e-5}
+                   DS_ARCH: 3e-5, WHISPER_ARCH: 3e-5, LLAVA_ARCH: 3e-5}
+# the frontend forms train at batch 1, each row with its frames or patches
+# (random, from the seed): llava's 2880 patches make a 3904-token sequence
+TRAIN_FRONTEND_BATCH = 1
 TRAIN_LOSS_REL = 1e-4
 TRAIN_GRAD_REL = 1e-3
 FLASH_DROP = 64
@@ -173,7 +197,27 @@ PATH_KERNELS = {ARCH: ("decode_attention", "flash_attention_pool"),
                 RG_ARCH: ("decode_attention", "flash_attention_pool",
                           "rglru_scan"),
                 RWKV_ARCH: ("rwkv6_scan",),
-                DS_ARCH: ("moe_gemm",)}
+                DS_ARCH: ("moe_gemm",),
+                WHISPER_ARCH: ("decode_attention", "flash_attention_pool"),
+                LLAVA_ARCH: ("decode_attention", "flash_attention_pool")}
+# [encdec]: whisper-tiny's rows, prompt tokens and decode steps, and its
+# ring; [vision]: llava-next-34b's prompt tokens (after its 2880 patches)
+# and decode steps, and its ring
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS, ENCDEC_MAX_LEN = 4, 64, 32, 128
+VISION_PROMPT, VISION_STEPS, VISION_MAX_LEN = 128, 16, 4096
+# the frontend forms' attention calls in [encdec] and [vision] (the
+# kernel_phase cases): (name, rows, chunk or None for decode, ring slots,
+# live slots, (Hq, Hkv, hd))
+FRONTEND_DECODE = [
+    ("whisper B=4 6/6 hd64 ring 128", 4, None, ENCDEC_MAX_LEN, 96,
+     (6, 6, 64)),
+    ("llava B=1 56/8 hd128 ring 4096", 1, None, VISION_MAX_LEN, 3016,
+     (56, 8, 128))]
+FRONTEND_POOL = [
+    ("whisper B=4 C=64 6/6 hd64 ring 128", 4, ENCDEC_PROMPT, ENCDEC_MAX_LEN,
+     ENCDEC_PROMPT, (6, 6, 64)),
+    ("llava C=3008 56/8 hd128 ring 4096", 1, 2880 + VISION_PROMPT,
+     VISION_MAX_LEN, 2880 + VISION_PROMPT, (56, 8, 128))]
 
 
 def log(*a):
@@ -319,6 +363,36 @@ def decode_cases(gen):
                                   cur),
                   dict(window=None, kv_limit=None, k_scale=None,
                        v_scale=None), False))
+    return cases + frontend_cases(gen, FRONTEND_DECODE)
+
+
+def frontend_cases(gen, table):
+    """The frontend forms' calls (FRONTEND_DECODE, FRONTEND_POOL): bf16 K/V
+    over the whole ring (their serves pass no kv_limit) with positions
+    [0, live) in slots [0, live); a decode query at position live - 1, or a
+    fresh prefill's chunk of C queries at positions [0, C) in the kernel
+    layout."""
+    cases = []
+    for name, B, C, S, live, (Hq, Hkv, hd) in table:
+        k, _ = _kv(gen, (B, S, Hkv, hd), torch.bfloat16, False)
+        v, _ = _kv(gen, (B, S, Hkv, hd), torch.bfloat16, False)
+        sp = _ring_positions(B, S, live).cuda()
+        if C is None:
+            q = torch.randn((B, Hq, hd), generator=gen,
+                            device="cuda").bfloat16()
+            cur = torch.full((B,), live - 1, dtype=torch.int32,
+                             device="cuda")
+            cases.append((name, (q, k, v, sp, cur),
+                          dict(window=None, kv_limit=None, k_scale=None,
+                               v_scale=None), False))
+            continue
+        q = torch.randn((B, C, Hq, hd), generator=gen,
+                        device="cuda").bfloat16()
+        pos_q = torch.arange(C, dtype=torch.int32,
+                             device="cuda").repeat(B, 1)
+        cases.append((name, (q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), pos_q, sp),
+                      dict(window=None, k_scale=None, v_scale=None), False))
     return cases
 
 
@@ -416,7 +490,7 @@ def pool_cases(gen):
     cases.append((STAGED_POOL, (q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), pos_q, sp),
                   dict(window=None, k_scale=None, v_scale=None), False))
-    return cases
+    return cases + frontend_cases(gen, FRONTEND_POOL)
 
 
 def pool_work(args, kw):
@@ -425,14 +499,14 @@ def pool_work(args, kw):
     (causality, empty slots, window), 4 hd operations per pair and query
     head; K/V (and scales) of the slots some query sees, every position."""
     q, k, _, pos_q, pos_kv = args
-    _, Hq, C, hd = q.shape
+    B, Hq, C, hd = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     pq, pk = pos_q[:, :, None], pos_kv[:, None, :]
     ok = (pk >= 0) & (pk <= pq)
     if kw["window"] is not None:
         ok &= pk > pq - kw["window"]
     pairs, n = int(ok.sum()), int(ok.any(1).sum())
-    moved = (nbytes(q) * 2 + S * 4 + C * 4
+    moved = (nbytes(q) * 2 + B * S * 4 + B * C * 4
              + n * Hkv * hd * k.element_size() * 2
              + (n * Hkv * 4 * 2 if kw["k_scale"] is not None else 0))
     return moved, 4 * Hq * hd * pairs
@@ -440,9 +514,13 @@ def pool_work(args, kw):
 
 def pool_drop_tile(args):
     """The same inputs with the DROP_TILE positions just before the chunk
-    (seen by every query, inside every window) emptied."""
+    (seen by every query, inside every window) emptied; for a fresh
+    prefill's chunk, with no position before it, the DROP_TILE positions
+    before its middle (seen by its later half)."""
     q, k, v, pos_q, pos_kv = args
-    lo = pos_q.min()
+    lo = int(pos_q.min())
+    if lo < DROP_TILE:
+        lo = (lo + int(pos_q.max()) + 1) // 2
     drop = (pos_kv >= lo - DROP_TILE) & (pos_kv < lo)
     return q, k, v, pos_q, torch.where(drop, -1, pos_kv)
 
@@ -787,7 +865,14 @@ def flash_cases(gen):
             ("f32 B=2 S=1024 16/16 hd128 causal", 2, 1024, 16, 16, 128,
              torch.float32, None),
             ("f32 B=2 S=1024 16/1 hd256 window=2048", 2, 1024, 16, 1, 256,
-             torch.float32, 2048)]:
+             torch.float32, 2048),
+            # the frontend forms' decoders (batch 1, f32): whisper-tiny's
+            # 6/6 heads of 64, and llava-next-34b's 56/8 heads of 128 (G 7)
+            # over its 2880 patches and 1024 tokens
+            ("f32 B=1 S=1024 6/6 hd64 causal", 1, 1024, 6, 6, 64,
+             torch.float32, None),
+            ("f32 B=1 S=3904 56/8 hd128 causal", 1, 2880 + 1024, 56, 8, 128,
+             torch.float32, None)]:
         def mk(H):
             return torch.randn((B, S, H, hd), generator=gen,
                                device="cuda").to(dtype).transpose(1, 2)
@@ -975,11 +1060,13 @@ def _rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _grad_gaps(cfg, params, toks, want):
+def _grad_gaps(cfg, params, toks, want, frontend=None):
     """The largest per-leaf relative L2 gap of the kernel path's gradients
-    (one step at ``params`` on ``toks``) to ``want``, and the loss."""
+    (one step at ``params`` on ``toks`` and ``frontend``) to ``want``, and
+    the loss."""
     from repro_torch.train.train_loop import loss_and_grads
-    loss, _, grads = loss_and_grads(cfg, params, toks, kernel_backend="cuda")
+    loss, _, grads = loss_and_grads(cfg, params, toks, frontend,
+                                    kernel_backend="cuda")
     gaps = {n: _rel_l2(g, want[n]) for n, g in grads.items()}
     for p in params.parameters():
         p.grad = None
@@ -1193,32 +1280,33 @@ def _attn_layers(cfg):
     return (head + pattern * repeats + tail).count("attn")
 
 
-def train_step_check(cfg, params, toks, label, fault):
-    """One step at fixed weights and batch through the kernels against the
-    plain path: the loss to TRAIN_LOSS_REL, every gradient leaf to
-    TRAIN_GRAD_REL relative L2, exact launches (2 ``flash_attention`` an
-    attention layer, the forward and remat's recompute, 1
-    ``flash_attention_bwd``, every other kernel 0); with ``fault``, a
-    planted dK/dV tile dropped in every attention layer must push the
-    gradient gap past the limit.  Returns the step's numbers and its
-    launches per step."""
+def train_step_check(cfg, params, toks, label, fault, frontend=None):
+    """One step at fixed weights and batch (and ``frontend``: frames or
+    patches) through the kernels against the plain path: the loss to
+    TRAIN_LOSS_REL, every gradient leaf to TRAIN_GRAD_REL relative L2,
+    exact launches (2 ``flash_attention`` an attention layer, the forward
+    and remat's recompute, 1 ``flash_attention_bwd``, every other kernel
+    0); with ``fault``, a planted dK/dV tile dropped in every attention
+    layer must push the gradient gap past the limit.  Returns the step's
+    numbers and its launches per step."""
     from repro_torch.kernels import ops
     from repro_torch.train.train_loop import loss_and_grads
     t0 = time.perf_counter()
-    loss_p, _, want = loss_and_grads(cfg, params, toks,
+    loss_p, _, want = loss_and_grads(cfg, params, toks, frontend,
                                      kernel_backend="plain")
     want = dict(want)
     for p in params.parameters():
         p.grad = None
     ops.reset_launches()
-    loss_c, gaps = _grad_gaps(cfg, params, toks, want)
+    loss_c, gaps = _grad_gaps(cfg, params, toks, want, frontend)
     step_launches = dict(ops.LAUNCHES)
     loss_f, fault_gaps = None, None
     if fault:
         real = ops.flash_attention_bwd
         ops.flash_attention_bwd = _dropped_dkdv(real)
         try:
-            loss_f, fault_gaps = _grad_gaps(cfg, params, toks, want)
+            loss_f, fault_gaps = _grad_gaps(cfg, params, toks, want,
+                                            frontend)
         finally:
             ops.flash_attention_bwd = real
     del want
@@ -1261,16 +1349,18 @@ def train_step_check(cfg, params, toks, label, fault):
     return out, per_step
 
 
-def train_steps_report(label, hist, launches, per_step, wall, peak, smi):
+def train_steps_report(label, hist, launches, per_step, wall, peak, smi,
+                       batch=TRAIN_BATCH):
     """Log and check TRAIN_STEPS logged steps: the launches of every step
     as ``per_step``, a finite loss that falls.  Returns (losses, step
-    seconds, their median after the first, tokens/s)."""
+    seconds, their median after the first, tokens/s: the ``batch`` rows'
+    text tokens)."""
     from repro_torch.kernels import ops
     losses = [h["loss"] for h in hist]
     ends = [h["elapsed"] for h in hist]
     step_s = [b - a for a, b in zip([0.0] + ends, ends)]
     steady = statistics.median(step_s[1:])
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / steady
+    tok_s = batch * TRAIN_SEQ / steady
     log(f"[train] {label} {TRAIN_STEPS} steps: losses "
         + ", ".join(f"{x:.4f}" for x in losses)
         + f"; step s " + ", ".join(f"{x:.3f}" for x in step_s)
@@ -1367,6 +1457,27 @@ def _param_counts(cfg, full_cfg, params):
     return sum(p.numel() for p in params.parameters()), full
 
 
+def _frontend_emb(cfg, batch, dtype, seed):
+    """Random frames (whisper) or patch embeddings (llava), (batch,
+    frontend_tokens, frontend_dim), std 0.5, from a device generator; None
+    for a text-only config."""
+    if cfg.frontend == "none":
+        return None
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return (torch.randn((batch, cfg.frontend_tokens, cfg.frontend_dim),
+                        generator=gen, device="cuda") * 0.5).to(dtype)
+
+
+def _train_data(cfg, batch, frontend):
+    """The synthetic corpus at ``batch`` x TRAIN_SEQ, each batch with the
+    fixed ``frontend`` embeddings where the config has a frontend."""
+    from repro_torch.data.pipeline import PipelineConfig, batches
+    for b in batches(PipelineConfig(batch_size=batch, seq_len=TRAIN_SEQ,
+                                    vocab_size=259, seed=SEED)):
+        yield b if frontend is None else dict(b, frontend=frontend)
+
+
 def family_train_phase(arch, smi, lr=None):
     """[train] for ``arch`` (one of TRAIN_FAMILIES) at full width in f32,
     cut in depth where TRAIN_FAMILIES says one H100's 80 GB forces it: one
@@ -1377,9 +1488,12 @@ def family_train_phase(arch, smi, lr=None):
     launcher, cut in depth through ``train_loop.train``, the function the
     launcher calls -- with exact launches: ``flash_attention`` 2 and
     ``flash_attention_bwd`` 1 an attention layer and step, ``moe_gemm`` and
-    the scans 0 (training runs them on the plain path)."""
+    the scans 0 (training runs them on the plain path).  The frontend forms
+    train at TRAIN_FRONTEND_BATCH rows, each with fixed random frames or
+    patches, through ``train_loop.train`` (the launcher's batches carry
+    none, as the reference's do); whisper's encoder and cross attention
+    launch nothing (``full_attention``, plain)."""
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import PipelineConfig, batches
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launcher
     from repro_torch.models import init_params
@@ -1390,6 +1504,8 @@ def family_train_phase(arch, smi, lr=None):
     full = get_config(arch)
     cut = TRAIN_FAMILIES[arch]
     cfg = full.with_overrides(**cut) if cut else full
+    batch = TRAIN_BATCH if cfg.frontend == "none" else TRAIN_FRONTEND_BATCH
+    frontend = _frontend_emb(cfg, batch, torch.float32, SEED + 4)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=SEED, dtype=torch.float32, device="cuda")
     n_params, n_full = _param_counts(cfg, full, params)
@@ -1402,18 +1518,19 @@ def family_train_phase(arch, smi, lr=None):
         f"vocab {cfg.vocab_size}; {n_params / 1e9:.3f} B params f32, "
         f"{16 * n_params / 1e9:.1f} GB of weights, gradients and two Adam "
         f"moments at 16 B a parameter (full depth {n_full / 1e9:.3f} B, "
-        f"{16 * n_full / 1e9:.1f} GB); batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-        f"lr {lr}; init {time.perf_counter() - t0:.1f} s")
-    toks = _train_batch()
+        f"{16 * n_full / 1e9:.1f} GB); batch {batch} x {TRAIN_SEQ}"
+        + ("" if frontend is None else
+           f" after {cfg.frontend_tokens} {cfg.frontend} embeddings")
+        + f", lr {lr}; init {time.perf_counter() - t0:.1f} s")
+    toks = _train_batch()[:batch]
     step_check, per_step = train_step_check(cfg, params, toks, label,
-                                            fault=n_attn > 0)
+                                            fault=n_attn > 0,
+                                            frontend=frontend)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    if cut:
-        data = batches(PipelineConfig(batch_size=TRAIN_BATCH,
-                                      seq_len=TRAIN_SEQ, vocab_size=259,
-                                      seed=SEED))
+    if cut or frontend is not None:
+        data = _train_data(cfg, batch, frontend)
         opt = AdamWConfig(lr=lr, warmup_steps=max(TRAIN_STEPS // 10, 1),
                           total_steps=TRAIN_STEPS)
         params, _, hist = train(cfg, params, data, opt, TRAIN_STEPS,
@@ -1433,12 +1550,13 @@ def family_train_phase(arch, smi, lr=None):
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses, step_s, steady, tok_s = train_steps_report(
-        f"{label} through {how}", hist, launches, per_step, wall, peak, smi)
+        f"{label} through {how}", hist, launches, per_step, wall, peak, smi,
+        batch)
     params = None
     _release()
     return dict(arch=arch, cut=cut, layers=cfg.num_layers,
                 attention_layers=n_attn, params=n_params,
-                full_depth_params=n_full, lr=lr, batch=TRAIN_BATCH,
+                full_depth_params=n_full, lr=lr, batch=batch,
                 seq=TRAIN_SEQ, steps=TRAIN_STEPS, via=how, losses=losses,
                 step_s=step_s, median_step_s=steady, tokens_per_s=tok_s,
                 peak_mem_gb=peak, launches=launches, step_check=step_check)
@@ -2911,6 +3029,288 @@ def f32_token_check(cfg):
                 plain_exact=exact, plain_total=total, plain_worst_gap=worst)
 
 
+# -- the frontend forms -------------------------------------------------------
+def _frontend_teacher_forced(cfg, params, toks, fe, served, *, backend,
+                             max_len, dtype, split=False):
+    """Yield the (B, V) f32 logits that score each served position: the
+    prefill (an encoder-decoder's frames into the cache, then the prompt;
+    a vision config's patches before the prompt in one call, or with
+    ``split`` in two: the patches alone, then the prompt), then the served
+    tokens (B, n) fed one step at a time through ``extend``."""
+    from repro_torch.models import extend, init_cache, prefill
+    if split:
+        cache = init_cache(cfg, params, toks.shape[0], max_len, dtype)
+        extend(cfg, params, cache, toks[:, :0], frontend_emb=fe,
+               kernel_backend=backend)
+        logits, cache = extend(cfg, params, cache, toks,
+                               kernel_backend=backend)
+    else:
+        logits, cache = prefill(cfg, params, toks, frontend_emb=fe,
+                                max_len=max_len, dtype=dtype,
+                                kernel_backend=backend)
+    for i in range(served.shape[1]):
+        yield logits.float()
+        if i + 1 < served.shape[1]:
+            logits, cache = extend(cfg, params, cache,
+                                   served[:, i:i + 1].long(),
+                                   kernel_backend=backend)
+
+
+def _gaps(logits, tok):
+    """Each row's gap of its token ``tok`` below its largest logit."""
+    return (logits.max(-1).values
+            - logits.gather(-1, tok[:, None].long())[:, 0])
+
+
+def _frontend_tokens_check(cfg, params, toks, fe, served, label, gate=True,
+                           **kw):
+    """The plain path on the card, teacher-forced on ``served`` (B, n: the
+    prefill's argmax, then the decoded tokens) with the prefill in one
+    call, scoring every served token.  With ``gate``, each must be the
+    plain argmax or within LOGIT_MARGIN of it.  Returns (exact, total,
+    largest gap, the plain argmaxes (B, n))."""
+    exact = total = 0
+    worst = 0.0
+    tops = []
+    for i, lg in enumerate(_frontend_teacher_forced(
+            cfg, params, toks, fe, served, backend="plain", **kw)):
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"[{label}] plain logits not finite at "
+                                 f"token {i}")
+        gap = _gaps(lg, served[:, i])
+        tops.append(lg.argmax(-1))
+        exact += int((gap == 0).sum())
+        total += gap.numel()
+        worst = max(worst, gap.max().item())
+        if gate and gap.max().item() > LOGIT_MARGIN:
+            row = int(gap.argmax())
+            raise AssertionError(
+                f"[{label}] row {row} token {i}: served "
+                f"{int(served[row, i])} is {gap[row].item():.4f} below the "
+                f"plain argmax {int(tops[-1][row])} (margin {LOGIT_MARGIN})")
+    return exact, total, worst, torch.stack(tops, dim=1)
+
+
+def _plain_floor(cfg, params, toks, fe, served, tops, **kw):
+    """The plain path against itself, both teacher-forced on ``served``:
+    the largest gap of the one-call prefill's argmaxes ``tops`` under the
+    logits of the prefill split into the patches and the prompt (the same
+    function; only the chunks' rounding differs)."""
+    floor = 0.0
+    for i, lg in enumerate(_frontend_teacher_forced(
+            cfg, params, toks, fe, served, backend="plain", split=True,
+            **kw)):
+        floor = max(floor, _gaps(lg, tops[:, i]).max().item())
+    return floor
+
+
+def _frontend_serve(cfg, params, toks, fe, steps, label, **kw):
+    """``prefill`` then a ``decode_run`` of ``steps`` fused steps, every row
+    active, through the kernels; launches counted from 0 over both and
+    held exact: one ``flash_attention_pool`` an attention layer for the
+    prefill, one ``decode_attention`` an attention layer and step, nothing
+    else (the encoder and the cross attention run ``full_attention``,
+    plain).  Returns (served tokens (B, 1 + steps), launches, prefill s,
+    decode s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_run, layout, prefill
+    head, pattern, repeats, tail = layout(cfg)
+    n_attn = (head + pattern * repeats + tail).count("attn")
+    active = torch.ones(toks.shape[0], dtype=torch.bool, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, toks, frontend_emb=fe,
+                            kernel_backend="cuda", **kw)
+    first = logits.argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    block, _, cache = decode_run(cfg, params, cache, first, active, steps,
+                                 kernel_backend="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = dict(ops.LAUNCHES)
+    want = {k: 0 for k in launches}
+    want.update(flash_attention_pool=n_attn, decode_attention=n_attn * steps)
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches} != {want}")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"[{label}] prefill logits not finite")
+    served = torch.cat([first[:, None], block.t()], dim=1)
+    del cache
+    return served, launches, t1 - t0, t2 - t1
+
+
+def encdec_phase(smi):
+    """[encdec]: whisper-tiny at full width and depth in bf16 (random
+    weights, seed SEED): ENCDEC_BATCH rows of random frames (1500 x 384)
+    and ENCDEC_PROMPT-token prompts, ``prefill`` into an
+    ENCDEC_MAX_LEN-slot ring (the encoder, then the cross K/V of every
+    decoder layer, then the prompt), then ENCDEC_STEPS fused decode steps,
+    through the kernels (launches exact: 4 pool launches, 4 decode
+    launches a step, none in the encoder); every token held to the plain
+    path on the same weights."""
+    cfg, params = _init(WHISPER_ARCH)
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT))).cuda()
+    fe = _frontend_emb(cfg, ENCDEC_BATCH, torch.bfloat16, SEED + 3)
+    kw = dict(max_len=ENCDEC_MAX_LEN, dtype=torch.bfloat16)
+    _frontend_serve(cfg, params, toks, fe, 2, WHISPER_ARCH, **kw)  # warm
+    served, launches, t_pre, t_dec = _frontend_serve(
+        cfg, params, toks, fe, ENCDEC_STEPS, WHISPER_ARCH, **kw)
+    t0 = time.perf_counter()
+    exact, total, worst, _ = _frontend_tokens_check(
+        cfg, params, toks, fe, served, WHISPER_ARCH, **kw)
+    gen_tok = ENCDEC_BATCH * ENCDEC_STEPS
+    log(f"[encdec] {WHISPER_ARCH}: {ENCDEC_BATCH} rows, {cfg.frontend_tokens} "
+        f"frames through {cfg.num_encoder_layers} encoder layers, "
+        f"{ENCDEC_PROMPT}-token prompts, {ENCDEC_STEPS} decode steps: "
+        f"prefill {t_pre:.4f} s, decode {t_dec:.4f} s "
+        f"({gen_tok / t_dec:.1f} tok/s); launches {launches}; vs plain path "
+        f"{exact}/{total} exact ({exact / total:.4f}), largest gap "
+        f"{worst:.4f} (margin {LOGIT_MARGIN}), check "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    del params
+    _release()
+    return dict(rows=ENCDEC_BATCH, prompt=ENCDEC_PROMPT, steps=ENCDEC_STEPS,
+                prefill_s=t_pre, decode_s=t_dec, decode_tok_s=gen_tok / t_dec,
+                launches=launches, plain_exact=exact, plain_total=total,
+                plain_worst_gap=worst)
+
+
+# planted faults of the [vision] gate: one DROP_TILE-slot tile of live
+# positions dropped in every decode or prefill attention call of a serve
+VISION_FAULTS = [
+    (f"one {DROP_TILE}-slot tile dropped in every decode attention call",
+     "decode_attention", decode_drop_tile),
+    (f"one {DROP_TILE}-slot tile dropped in every prefill attention call",
+     "flash_attention_pool", pool_drop_tile)]
+
+
+def _planted_serve(cfg, params, toks, fe, steps, label, kernel, drop, **kw):
+    """``_frontend_serve`` with ``ops.<kernel>`` fed ``drop(args)``: the
+    served tokens of a kernel that skipped a tile in every call."""
+    from repro_torch.kernels import ops
+    real = getattr(ops, kernel)
+
+    def faulty(*args, **kwargs):
+        return real(*drop(args), **kwargs)
+    setattr(ops, kernel, faulty)
+    try:
+        return _frontend_serve(cfg, params, toks, fe, steps, label, **kw)[0]
+    finally:
+        setattr(ops, kernel, real)
+
+
+def _profile_vision(cfg, params, toks, fe, **kw):
+    """The prefill and a 4-step decode segment once more, each under the
+    profiler: wall, device busy and its share of wall, the attention
+    kernels' device time and share of busy (PROFILED_KERNELS)."""
+    from repro_torch.models import decode_run, prefill
+    out = {}
+    logits, cache = prefill(cfg, params, toks, frontend_emb=fe,
+                            kernel_backend="cuda", **kw)
+    first = logits.argmax(-1).to(torch.int32)
+    active = torch.ones(toks.shape[0], dtype=torch.bool, device="cuda")
+    for label, fn in (
+            (f"prefill C={cfg.frontend_tokens + toks.shape[1]}",
+             lambda: prefill(cfg, params, toks, frontend_emb=fe,
+                             kernel_backend="cuda", **kw)),
+            ("decode B=1 x 4 steps", lambda: decode_run(
+                cfg, params, cache, first, active, 4,
+                kernel_backend="cuda"))):
+        wall, times, _ = _device_times(fn)
+        busy = sum(t for _, t in times)
+        if busy <= 0:
+            log(f"[profile] {cfg.name} {label}: no device time in the "
+                "trace: not measured")
+            continue
+        attn = sum(t for n, t in times
+                   if any(x in n for x in PROFILED_KERNELS["attention"]))
+        top = sorted(times, key=lambda r: -r[1])[:6]
+        out[label] = dict(wall_ms=wall * 1e3, device_busy_ms=busy,
+                          busy_share=busy / 1e3 / wall, attention_ms=attn,
+                          attention_share=attn / busy,
+                          top_ms={n[:90]: t for n, t in top})
+        log(f"[profile] {cfg.name} {label}: wall {wall * 1e3:.2f} ms, device "
+            f"busy {busy:.2f} ms ({busy / 1e3 / wall:.3f} of wall); "
+            f"attention {attn:.3f} ms ({attn / busy:.3f} of busy)")
+        for name, t in top:
+            log(f"[profile]   {t:10.3f} ms  {name[:90]}")
+    del cache
+    return out
+
+
+def vision_phase(smi):
+    """[vision]: llava-next-34b at full width and depth in bf16 (random
+    weights, seed SEED; 34.4 B parameters, 68.8 GB): one row of 2880
+    random patch embeddings and a VISION_PROMPT-token prompt in one
+    prefill chunk into a VISION_MAX_LEN-slot ring, then VISION_STEPS fused
+    decode steps, through the kernels (launches exact: 60 pool launches,
+    60 decode launches a step), and peak memory.  Its f32 weights (137.6
+    GB) cannot be on the card, so its tokens are held to the bf16 plain
+    path on the same weights: every served token within the plain path's
+    own noise floor (its argmaxes under the same plain path with the
+    prefill split into the patches and the prompt) plus LOGIT_MARGIN, a
+    gate that serves with a planted attention fault (VISION_FAULTS) must
+    fail.  Then the prefill and a decode segment under the profiler."""
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _init(LLAVA_ARCH)
+    rng = np.random.default_rng(SEED + 5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (1, VISION_PROMPT))).cuda()
+    fe = _frontend_emb(cfg, 1, torch.bfloat16, SEED + 5)
+    kw = dict(max_len=VISION_MAX_LEN, dtype=torch.bfloat16)
+    _frontend_serve(cfg, params, toks, fe, 2, LLAVA_ARCH, **kw)  # warm
+    served, launches, t_pre, t_dec = _frontend_serve(
+        cfg, params, toks, fe, VISION_STEPS, LLAVA_ARCH, **kw)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[vision] {LLAVA_ARCH}: {cfg.frontend_tokens} patches + "
+        f"{VISION_PROMPT} prompt tokens in one chunk, {VISION_STEPS} decode "
+        f"steps: prefill {t_pre:.4f} s, decode {t_dec:.4f} s "
+        f"({VISION_STEPS / t_dec:.2f} tok/s); peak memory {peak:.2f} GB; "
+        f"launches {launches}; {smi}")
+    t0 = time.perf_counter()
+    exact, total, worst, tops = _frontend_tokens_check(
+        cfg, params, toks, fe, served, LLAVA_ARCH, gate=False, **kw)
+    floor = _plain_floor(cfg, params, toks, fe, served, tops, **kw)
+    limit = floor + LOGIT_MARGIN
+    log(f"[check] {LLAVA_ARCH} bf16 served tokens vs plain path: "
+        f"{exact}/{total} exact ({exact / total:.4f}), largest gap "
+        f"{worst:.4f}; the plain path against itself (the prefill in one "
+        f"call vs split into the patches and the prompt) {floor:.4f}: the "
+        f"kernel path's gap must be within {floor:.4f} plus the margin "
+        f"{LOGIT_MARGIN} ({limit:.4f}); {time.perf_counter() - t0:.1f} s")
+    if worst > limit:
+        raise AssertionError(
+            f"[{LLAVA_ARCH}] the kernel path's largest gap {worst:.4f} "
+            f"exceeds the plain path's own {floor:.4f} plus the margin "
+            f"{LOGIT_MARGIN}")
+    faults = {}
+    for name, kernel, drop in VISION_FAULTS:
+        bad = _planted_serve(cfg, params, toks, fe, VISION_STEPS, LLAVA_ARCH,
+                             kernel, drop, **kw)
+        faults[name] = gap = _frontend_tokens_check(
+            cfg, params, toks, fe, bad, LLAVA_ARCH, gate=False, **kw)[2]
+        log(f"[check] {LLAVA_ARCH} bf16 with a planted fault ({name}): "
+            f"largest gap {gap:.4f}, {gap / limit:.2f} x the gate's "
+            f"{limit:.4f}: " + ("caught" if gap > limit else "NOT caught"))
+    missed = [n for n, gap in faults.items() if not gap > limit]
+    if missed:
+        raise AssertionError(f"[{LLAVA_ARCH}] the gate {limit:.4f} would not "
+                             f"catch {missed}: {faults}")
+    prof = _profile_vision(cfg, params, toks, fe, **kw)
+    del params
+    _release()
+    return dict(prompt=VISION_PROMPT, patches=cfg.frontend_tokens,
+                steps=VISION_STEPS, prefill_s=t_pre, decode_s=t_dec,
+                decode_tok_s=VISION_STEPS / t_dec, peak_mem_gb=peak,
+                launches=launches, plain_exact=exact, plain_total=total,
+                plain_worst_gap=worst, plain_noise_floor_gap=floor,
+                gate=limit, planted_fault_gaps=faults, profile=prof)
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2944,6 +3344,11 @@ def main():
         _release()  # the previous path's weights and pools
         other[arch] = full_width_serve_phase(arch)
         phase_done(arch)
+    _release()
+    encdec = encdec_phase(smi)
+    phase_done(f"{WHISPER_ARCH} encdec")
+    vision = vision_phase(smi)
+    phase_done(f"{LLAVA_ARCH} vision")
     # launches of each kernel in the main-path runs, each counted from 0
     by_path = {f"{ARCH} train": train_stats["launches"],
                **{f"{a} train": st["launches"]
@@ -2966,7 +3371,9 @@ def main():
                   for k, v in serve_stats["baselines"].items()},
                **{f"{a} bf16": st["launches"] for a, st in other.items()},
                **{f"{a} f32": st["f32"]["launches"]
-                  for a, st in other.items() if "f32" in st}}
+                  for a, st in other.items() if "f32" in st},
+               f"{WHISPER_ARCH} encdec": encdec["launches"],
+               f"{LLAVA_ARCH} vision": vision["launches"]}
     replaces = {"decode_attention":
                 "src/repro/kernels/decode_attention.py:79",
                 "flash_attention_pool":
@@ -3011,6 +3418,7 @@ def main():
     log(json.dumps({"launcher": launcher}))
     for arch, st in other.items():
         log(json.dumps({f"serve {arch}": st}))
+    log(json.dumps({"encdec": encdec, "vision": vision}))
     log(json.dumps({"kernel_cases": [
         dict(name=k, shape=n, **row) for (k, n), row in kernel_rows.items()]}))
     log(json.dumps({"kernels": kernels}))

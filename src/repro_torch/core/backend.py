@@ -319,6 +319,13 @@ class TorchRealBackend(ExecutionBackend):
 
     name = "torch"
 
+    _ENC_DEC_MSG = (
+        "TorchRealBackend cannot serve encoder-decoder configs: slot "
+        "rebinding invalidates a pool row with kvcache.reset_row, which "
+        "deliberately leaves enc_out / cross-attention state untouched — a "
+        "rebound slot would silently serve the PREVIOUS occupant's encoder "
+        "output as its cross-attention context")
+
     def __init__(self, cfg, params, *, pool_slots: int, max_len: int = 512,
                  dtype=None, device=None, device_resident: bool = True,
                  in_pool_prefill: Optional[bool] = None,
@@ -339,6 +346,13 @@ class TorchRealBackend(ExecutionBackend):
         from repro_torch.models import cache_bytes, check_supported, \
             init_cache, kv_supports_int8
         from repro_torch.models.transformer import KERNEL_BACKENDS
+        # the reference's refusals, in its order: the model API runs these
+        # forms, the serving path does not
+        if cfg.is_encoder_decoder:
+            raise NotImplementedError(self._ENC_DEC_MSG)
+        if cfg.frontend != "none":
+            raise NotImplementedError(
+                "TorchRealBackend serves text-only decoders")
         check_supported(cfg)
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' or 'int8': {kv_dtype}")
@@ -893,6 +907,10 @@ class TorchRealBackend(ExecutionBackend):
 
     def register(self, req: Request,
                  on_token: Optional[TokenCallback] = None) -> None:
+        if self.cfg.is_encoder_decoder:
+            # guarded again here, as in the reference, so no subclass can
+            # reach the slot pool with cross state reset_row leaves stale
+            raise NotImplementedError(self._ENC_DEC_MSG)
         if on_token is not None:
             self._on_token[req.id] = on_token
         if self.in_pool_prefill and req.tokens is not None:

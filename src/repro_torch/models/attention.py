@@ -1,10 +1,13 @@
-"""Attention reference math: chunked flash-style prefill, cache decode, MLA.
+"""Attention reference math: chunked flash-style prefill, cache decode,
+direct attention, MLA.
 
 PyTorch port of ``repro.models.attention``.  The GQA functions are the
 model's ``kernel_backend="plain"`` path; the CUDA kernels in
 ``repro_torch.kernels`` compute the same masks and online softmax.  The MLA
-functions (DeepSeek-V2) have no kernel, here as in the reference: they are
-the route of MLA attention under either kernel backend.
+functions (DeepSeek-V2) and ``full_attention`` (whisper's encoder and the
+decoder's cross attention) have no kernel, here as in the reference, whose
+callers of them reach no Pallas kernel: they are the route of that
+attention under either kernel backend.
 
 All attention math accumulates in f32.  Shapes:
   q: (B, Sq, Hq, hd)    k/v: (B, Skv, Hkv, hd)   with Hq % Hkv == 0 (GQA).
@@ -106,6 +109,33 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             scale=scale))
     out = torch.cat(outs, dim=1).reshape(B, Sq_p, Hq, hd)
     return out[:, :Sq]
+
+
+def full_attention(q, k, v, *, causal: bool = False,
+                   window: Optional[int] = None, pos_q=None, pos_kv=None,
+                   valid_kv=None):
+    """Direct softmax attention with f32 scores, for short key sequences
+    (the encoder over its frames, cross attention over the encoder's
+    output); non-causal by default.  ``valid_kv`` (B, Skv) bool masks keys
+    out.  Returns (B, Sq, Hq, hd) in q's dtype."""
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.reshape(B, Sq, Hkv, G, hd).float() * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    if causal or window is not None or valid_kv is not None:
+        if pos_q is None:
+            pos_q = torch.arange(Sq, device=q.device)
+        if pos_kv is None:
+            pos_kv = torch.arange(k.shape[1], device=q.device)
+        bias = _mask_bias(pos_q, pos_kv, causal, window, valid_kv)
+        while bias.ndim < s.ndim:
+            bias = bias[..., None, :, :]
+        s = s + bias
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd).to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, pos_kv, cur_pos, *,

@@ -11,12 +11,19 @@ reference's::
       "blocks": {pos_idx: state}   stacked over a leading repeats axis
                               (batch on axis 1),
       "tail":  (state_0, ...) unrolled trailing layers (batch on axis 0),
+      "enc_out": (B, F, d)    encoder output (encoder-decoder only: the
+                              decoder reads its layers' ``xk``/``xv``,
+                              and the pool helpers, which serve
+                              text-only decoders, leave it),
     }
 
 Attention state is a ring buffer of ``alloc`` slots; ``slot_pos`` stores each
 slot's absolute position (-1 = empty).  A GQA ring holds ``k``/``v``; an
 MLA ring holds the latent ``c`` (B, alloc, kv_lora_rank) and the shared
-RoPE key ``kr`` (B, alloc, qk_rope_head_dim).  Recurrent state (RG-LRU ``h`` and
+RoPE key ``kr`` (B, alloc, qk_rope_head_dim).  An encoder-decoder layer also
+holds its cross-attention K/V ``xk``/``xv`` (B, cross_len, Hkv, hd), which
+have no ring axis: the helpers move them whole and ``reset_row`` leaves
+them, as it leaves the ring payload.  Recurrent state (RG-LRU ``h`` and
 ``conv``, RWKV6 ``wkv``, ``shift_tm`` and ``shift_cm``) has no ring axis: the
 helpers move it whole, row by row, and ``reset_row`` zeroes it.
 
@@ -41,7 +48,8 @@ _QUANT_EPS = 1e-8
 _RING_PAYLOAD = frozenset({"k", "v", "c", "kr", "slot_pos", "k_scale",
                            "v_scale"})
 # attention payload: left stale (not rewritten) by reset_row
-_ATTN_PAYLOAD = frozenset({"k", "v", "c", "kr", "k_scale", "v_scale"})
+_ATTN_PAYLOAD = frozenset({"k", "v", "c", "kr", "xk", "xv", "k_scale",
+                           "v_scale"})
 
 
 def kv_supports_int8(cfg) -> bool:
@@ -75,10 +83,13 @@ def attn_alloc_len(cfg, max_len: int, window: Optional[int]) -> int:
 
 def init_layer_state(cfg, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, window: Optional[int] = None,
-                     kv_dtype: Optional[str] = None, device=None) -> dict:
+                     cross_len: int = 0, kv_dtype: Optional[str] = None,
+                     device=None) -> dict:
     """Fresh state of one layer of ``kind``.  ``kv_dtype="int8"``
     quantizes only attention rings; recurrent states keep f32 (``h``,
-    ``wkv``) and ``dtype`` (``conv``, shifts) as in the reference."""
+    ``wkv``) and ``dtype`` (``conv``, shifts) as in the reference.  A
+    ``cross_len`` adds an attention layer's cross K/V ``xk``/``xv``
+    (batch, cross_len, Hkv, hd) in ``dtype``."""
     if kind == "rglru":
         W = cfg.lru_width
         return {"h": torch.zeros((batch, W), dtype=torch.float32,
@@ -124,6 +135,10 @@ def init_layer_state(cfg, kind: str, batch: int, max_len: int,
                                     device=device)
         st["v_scale"] = torch.zeros((batch, alloc, hkv), dtype=torch.float32,
                                     device=device)
+    if cross_len:
+        for n in ("xk", "xv"):
+            st[n] = torch.zeros((batch, cross_len, hkv, hd), dtype=dtype,
+                                device=device)
     return st
 
 

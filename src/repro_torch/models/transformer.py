@@ -12,6 +12,14 @@ hybrids, RWKV6) with the MoE aux loss summed over the layers.  Layers run
 in the reference's order: the unrolled ``head``, the repeated ``blocks``
 pattern, then the unrolled ``tail``.
 
+The model entry points also take the reference's two frontend forms,
+whose embeddings come from a stub (``frontend_emb``): the encoder-decoder
+form (whisper: a bidirectional ``encode``r over the frames, and cross
+attention in every decoder layer over its output, whose K/V ``init_cache``
+computes once per layer) and the vision-prefix form (llava: the patch
+embeddings ``prepend_frontend``-ed to the prompt's token embeddings).  The
+real serving backends refuse both, as the reference's do.
+
 Differences from the reference, all forced by the frameworks:
 
 * The reference returns a new cache from every call and relies on buffer
@@ -37,7 +45,10 @@ by autograd in training), ``torch.einsum`` and ``models.ssm``'s scans.
 Training runs the expert products and the scans on the plain path under
 either backend (``check_trainable``).  MLA attention has no kernel (the
 reference's XLA path is its only one): it runs ``models.attention``'s MLA
-functions under either backend, in serving and in training.
+functions under either backend, in serving and in training.  Neither has
+the encoder's self-attention nor the decoder's cross attention: both run
+``models.attention.full_attention`` under either backend, as the
+reference's reach no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
 from repro_torch.models.attention import (chunked_attention, decode_attention,
+                                          full_attention,
                                           mla_decode_attention,
                                           mla_prefill_attention)
 from repro_torch.models.layers import (apply_rope, embed_tokens, lm_logits,
@@ -79,14 +91,10 @@ def layout(cfg):
 
 
 def check_supported(cfg) -> None:
-    """The port covers decoders built of attention (GQA or MLA; a dense or
+    """The port covers models built of attention (GQA or MLA; a dense or
     MoE FFN, dense head layers before an MoE trunk), RG-LRU and RWKV6
-    layers; the encoder-decoder and vision forms raise, naming the
-    ROADMAP.md item that ports them."""
-    if cfg.is_encoder_decoder or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and vision forms are not ported yet "
-            "(ROADMAP.md queue 1, item 10)")
+    layers, with the encoder-decoder and vision-prefix forms; a layer kind
+    the reference has no block for raises."""
     head, pattern, _, tail = layout(cfg)
     unknown = set(head + pattern + tail) - set(LAYER_KINDS)
     if unknown:
@@ -146,7 +154,10 @@ def _init_moe(cfg, R, gen, dtype, device):
     return p
 
 
-def _init_attn(cfg, R, gen, dtype, device):
+def _init_attn(cfg, R, gen, dtype, device, cross=False):
+    """Self-attention's projections and, with ``cross``, the cross
+    attention's ``xq``/``xk``/``xv``/``xo``
+    (``repro.models.transformer._init_attn``)."""
     d = cfg.d_model
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     out_std = 0.02 / (2 * cfg.num_layers) ** 0.5
@@ -168,6 +179,11 @@ def _init_attn(cfg, R, gen, dtype, device):
     if cfg.qkv_bias:
         for n, width in (("bq", Hq * hd), ("bk", Hkv * hd), ("bv", Hkv * hd)):
             attn[n] = _full(R, (width,), 0.0, dtype, device)
+    if cross:
+        for n, shape in (("xq", (d, Hq * hd)), ("xk", (d, Hkv * hd)),
+                         ("xv", (d, Hkv * hd))):
+            attn[n] = _stacked(gen, R, shape, 0.02, dtype, device)
+        attn["xo"] = _stacked(gen, R, (Hq * hd, d), out_std, dtype, device)
     return attn
 
 
@@ -215,16 +231,21 @@ def _init_rglru(cfg, R, gen, dtype, device):
             "w_out": nrm((W, d), out_std)}
 
 
-def _init_layer(cfg, kind, R, gen, dtype, device, dense_head=False):
+def _init_layer(cfg, kind, R, gen, dtype, device, dense_head=False,
+                cross=False):
     """One block of ``kind``: with a leading repeats axis of R (stacked
     ``blocks``), or unrolled (``R=None``: ``head`` and ``tail``).  A
     ``dense_head`` layer (one of the first ``first_k_dense_layers``) has a
-    dense FFN, of ``dense_d_ff`` in an MoE config."""
+    dense FFN, of ``dense_d_ff`` in an MoE config.  A ``cross`` attention
+    layer (an encoder-decoder's decoder) adds cross attention and its
+    pre-norm ``norm_x``."""
     d = cfg.d_model
     p = {"norm1": {"w": _full(R, (d,), 1.0, dtype, device)},
          "norm2": {"w": _full(R, (d,), 1.0, dtype, device)}}
     if kind == "attn":
-        p["attn"] = _init_attn(cfg, R, gen, dtype, device)
+        p["attn"] = _init_attn(cfg, R, gen, dtype, device, cross)
+        if cross:
+            p["norm_x"] = {"w": _full(R, (d,), 1.0, dtype, device)}
     elif kind == "rglru":
         p["rg"] = _init_rglru(cfg, R, gen, dtype, device)
     else:  # rwkv6: its FFN is the channel mix inside "tm"
@@ -241,7 +262,10 @@ def _init_layer(cfg, kind, R, gen, dtype, device, dense_head=False):
 def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     """Random weights at the reference's init scales (std 0.02; output
     projections 0.02 / sqrt(2 L)), drawn from a ``torch.Generator`` on
-    ``device`` seeded with ``seed``.  The draws differ from JAX's: tests that
+    ``device`` seeded with ``seed``, one layer's leaf at a time.  An
+    encoder-decoder config adds cross attention to every decoder layer and
+    the stacked ``encoder``; a frontend whose ``frontend_dim`` is not
+    ``d_model`` adds ``frontend_proj``.  The draws differ from JAX's: tests that
     compare the two frameworks carry JAX's weights across with
     ``params.from_jax_params`` instead.  Returns an ``nn.Module`` whose
     ``state_dict`` keys are the reference's tree paths.
@@ -264,17 +288,25 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": _normal(gen, (d, cfg.vocab_size), 0.02,
                                         dtype, device)}
+    cross = cfg.is_encoder_decoder
     # the unrolled sections under str(i), as from_jax_params names them;
     # an empty one adds no key
     for sec, kinds in (("head", head), ("tail", tail)):
         if kinds:
             tree[sec] = {str(i): _init_layer(cfg, kind, None, gen, dtype,
                                              device,
-                                             dense_head=sec == "head")
+                                             dense_head=sec == "head",
+                                             cross=cross)
                          for i, kind in enumerate(kinds)}
     tree["blocks"] = {str(pi): _init_layer(cfg, kind, repeats, gen, dtype,
-                                           device)
+                                           device, cross=cross)
                       for pi, kind in enumerate(pattern)}
+    if cross:
+        tree["encoder"] = _init_layer(cfg, "attn", cfg.num_encoder_layers,
+                                      gen, dtype, device)
+    if cfg.frontend != "none" and cfg.frontend_dim != d:
+        tree["frontend_proj"] = {"w": _normal(gen, (cfg.frontend_dim, d),
+                                              0.02, dtype, device)}
     return to_module(tree)
 
 
@@ -386,6 +418,25 @@ def _attn_mix_extend(cfg, ap, x, st, ctx):
     return out.reshape(B, C, Hq * hd) @ ap["wo"]
 
 
+def _cross_attn(cfg, ap, x, st, ctx):
+    """Encoder-decoder cross attention of (B, C, d) over the encoder's
+    output: its K/V from the layer's state (``xk``/``xv``, computed by
+    ``init_cache``) when ``st`` has them, else projected from
+    ``ctx["enc_out"]`` (training).  Plain ``full_attention``, non-causal,
+    under either kernel backend."""
+    B, C, _ = x.shape
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ ap["xq"]).reshape(B, C, Hq, hd)
+    if st is not None and "xk" in st:
+        xk, xv = st["xk"], st["xv"]
+    else:
+        enc = ctx["enc_out"]
+        xk = (enc @ ap["xk"]).reshape(B, enc.shape[1], Hkv, hd)
+        xv = (enc @ ap["xv"]).reshape(B, enc.shape[1], Hkv, hd)
+    out = full_attention(q, xk, xv, causal=False)
+    return out.reshape(B, C, Hq * hd) @ ap["xo"]
+
+
 def _ffn_apply(cfg, lp, x, ctx):
     """FFN / MoE sublayer on (B, C, d).  A decode step (C == 1, as the
     reference's ``extend`` sets its mode) is dropless, capacity B; a
@@ -401,6 +452,15 @@ def _ffn_apply(cfg, lp, x, ctx):
     return y.reshape(B, C, d)
 
 
+def _cross_step(cfg, lp, x, st, ctx):
+    """The cross-attention sublayer of an encoder-decoder's decoder layer
+    (pre-norm ``norm_x``, residual); the identity for any other layer."""
+    if not (cfg.is_encoder_decoder and "norm_x" in lp):
+        return x
+    hx = rms_norm(x, lp["norm_x"]["w"], cfg.norm_eps)
+    return x + _cross_attn(cfg, lp["attn"], hx, st, ctx)
+
+
 def apply_block(cfg, kind, lp, x, st, ctx):
     """One residual block of ``kind`` over (B, C, d); ``st`` is updated in
     place."""
@@ -413,6 +473,7 @@ def apply_block(cfg, kind, lp, x, st, ctx):
         x = x + rglru_block(h, lp["rg"], cfg, st, ctx)
     else:
         x = x + _attn_mix_extend(cfg, lp["attn"], h, st, ctx)
+        x = _cross_step(cfg, lp, x, st, ctx)
     h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
     return x + _ffn_apply(cfg, lp, h2, ctx)
 
@@ -452,8 +513,8 @@ def _run_trunk(cfg, layers, x, cache, ctx):
 def check_trainable(cfg) -> None:
     """``forward`` trains every family that ``check_supported`` accepts:
     dense or MoE attention, MLA with dense head layers, RG-LRU hybrids and
-    RWKV6.  The enc-dec and vision forms (ROADMAP.md queue 1, item 10)
-    raise, as they do in serving.
+    RWKV6, and the encoder-decoder and vision-prefix forms (given their
+    ``frontend_emb``).
 
     Kernels in training are fixed by mode, not chosen at run time: with
     ``kernel_backend="cuda"`` every GQA attention layer runs the CUDA
@@ -463,7 +524,8 @@ def check_trainable(cfg) -> None:
     recurrences always run their plain, autograd-differentiated forms, as
     the reference's training forward reaches no Pallas kernel:
     ``moe_gemm``, ``rglru_scan`` and ``rwkv6_scan`` are forward-only
-    kernels with no backward (item 11 (c))."""
+    kernels with no backward (item 11 (c)).  The encoder and the cross
+    attention run ``full_attention``, plain, under either backend."""
     check_supported(cfg)
 
 
@@ -533,6 +595,7 @@ def _apply_block_train(cfg, kind, lp, x, ctx):
         x = x + rglru_block(h, lp["rg"], cfg, None, ctx)
     else:
         x = x + _attn_mix_train(cfg, lp["attn"], h, ctx)
+        x = _cross_step(cfg, lp, x, None, ctx)
     h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
     y, aux = _ffn_train(cfg, lp, h2, ctx)
     return x + y, aux
@@ -580,20 +643,72 @@ def _run_trunk_train(cfg, params, x, ctx, *, remat):
     return x, aux_total
 
 
-def forward(cfg, params, tokens, *, window=None, remat=True, q_chunk=512,
-            kv_chunk=512, capacity_factor=1.25, kernel_backend="cuda"):
-    """Training forward: full-sequence logits (B, S, V) and the MoE aux loss
-    summed over the layers (zero for the families without a router),
-    mirroring ``repro.models.transformer.forward``.  tokens: (B, S) int.
-    The parameters' ``requires_grad`` decides what autograd tracks."""
+# ============================ frontend forms ================================
+def encode(cfg, params, frontend_emb):
+    """Whisper-style bidirectional encoder over the stub's frame embeddings
+    (B, F, frontend_dim): ``frontend_proj`` where the config has it, then
+    every ``encoder`` layer (pre-norm self-attention through
+    ``full_attention``, non-causal and without positions, and the FFN).
+    Returns (B, F, d)."""
+    x = frontend_emb
+    if "frontend_proj" in params:
+        x = x @ params["frontend_proj"]["w"]
+    B, F, _ = x.shape
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    for lp in _unbind(params["encoder"], cfg.num_encoder_layers):
+        h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
+        ap = lp["attn"]
+        q, k, v = h @ ap["wq"], h @ ap["wk"], h @ ap["wv"]
+        if cfg.qkv_bias:
+            q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
+        out = full_attention(q.reshape(B, F, Hq, hd),
+                             k.reshape(B, F, Hkv, hd),
+                             v.reshape(B, F, Hkv, hd), causal=False)
+        x = x + out.reshape(B, F, Hq * hd) @ ap["wo"]
+        h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
+        x = x + mlp(h2, lp["ffn"], cfg.mlp_gated)
+    return x
+
+
+def prepend_frontend(cfg, params, tokens_emb, frontend_emb):
+    """Vision prefix: the patch embeddings (B, F, frontend_dim), through
+    ``frontend_proj`` where the config has it and cast to the token
+    embeddings' dtype, before the tokens' (B, S, d): (B, F + S, d)."""
+    fe = frontend_emb
+    if "frontend_proj" in params:
+        fe = fe @ params["frontend_proj"]["w"]
+    return torch.cat([fe.to(tokens_emb.dtype), tokens_emb], dim=1)
+
+
+def _need_frames(cfg, frontend_emb):
+    if cfg.is_encoder_decoder and frontend_emb is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its encoder "
+                         "needs frontend_emb")
+
+
+def forward(cfg, params, tokens, frontend_emb=None, *, window=None,
+            remat=True, q_chunk=512, kv_chunk=512, capacity_factor=1.25,
+            kernel_backend="cuda"):
+    """Training forward: full-sequence logits (B, S_total, V) and the MoE
+    aux loss summed over the layers (zero for the families without a
+    router), mirroring ``repro.models.transformer.forward``.  tokens:
+    (B, S) int.  An encoder-decoder needs ``frontend_emb`` (its frames);
+    a vision config prepends it when given, so S_total = F + S.  The
+    parameters' ``requires_grad`` decides what autograd tracks."""
     check_trainable(cfg)
     _check_backend(kernel_backend)
+    _need_frames(cfg, frontend_emb)
     x = embed_tokens(tokens, params["embed"]["w"])
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(cfg, params, frontend_emb)
+    elif cfg.frontend == "vision" and frontend_emb is not None:
+        x = prepend_frontend(cfg, params, x, frontend_emb)
     S = x.shape[1]
     ctx = {"positions": torch.arange(S, device=x.device), "window": window,
            "q_chunk": q_chunk, "kv_chunk": kv_chunk, "ssm_chunk": 32,
            "capacity_factor": capacity_factor,
-           "kernel_backend": kernel_backend}
+           "kernel_backend": kernel_backend, "enc_out": enc_out}
     x, aux = _run_trunk_train(cfg, params, x, ctx, remat=remat)
     x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
     return lm_logits(x, params), aux
@@ -601,30 +716,44 @@ def forward(cfg, params, tokens, *, window=None, remat=True, q_chunk=512,
 
 # ============================ public entry points ===========================
 def init_cache(cfg, params, batch, max_len, dtype=torch.bfloat16, *,
-               window=None, kv_dtype=None, device=None):
+               window=None, frontend_emb=None, kv_dtype=None, device=None):
     """Fresh decode state: attention rings, recurrent states, and ``pos``.
     ``kv_dtype="int8"`` builds quantized attention rings (int8 payload +
     f32 ``k_scale``/``v_scale``); ``None``/"bf16" keeps the plain ``dtype``
-    ring.  ``device`` defaults to the parameters' device."""
+    ring.  ``device`` defaults to the parameters' device.  An
+    encoder-decoder encodes ``frontend_emb`` (required) once: the cache
+    holds its output ``enc_out`` and every decoder layer's cross K/V
+    ``xk``/``xv`` (B, F, Hkv, hd) in ``dtype``."""
     check_supported(cfg)
+    _need_frames(cfg, frontend_emb)
     if device is None:
         device = params["embed"]["w"].device
     head, pattern, repeats, tail = layout(cfg)
     kv_dtype = None if kv_dtype == "bf16" else kv_dtype
+    cross_len = frontend_emb.shape[1] if cfg.is_encoder_decoder else 0
 
     def mk(kind):
         return kvcache.init_layer_state(cfg, kind, batch, max_len, dtype,
-                                        window=window, kv_dtype=kv_dtype,
-                                        device=device)
+                                        window=window, cross_len=cross_len,
+                                        kv_dtype=kv_dtype, device=device)
 
     def stacked(kind):
         return {n: x[None].repeat((repeats,) + (1,) * x.ndim)
                 for n, x in mk(kind).items()}
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "head": tuple(mk(kind) for kind in head),
-            "blocks": {str(pi): stacked(kind)
-                       for pi, kind in enumerate(pattern)},
-            "tail": tuple(mk(kind) for kind in tail)}
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+             "head": tuple(mk(kind) for kind in head),
+             "blocks": {str(pi): stacked(kind)
+                        for pi, kind in enumerate(pattern)},
+             "tail": tuple(mk(kind) for kind in tail)}
+    if cfg.is_encoder_decoder:
+        enc_out = cache["enc_out"] = encode(cfg, params, frontend_emb)
+        for kind, (sec, key, r), lp in layer_views(cfg, params):
+            if kind == "attn":
+                st = cache[sec][key]
+                for n in ("xk", "xv"):
+                    leaf = st[n] if r is None else st[n][r]
+                    leaf.copy_((enc_out @ lp["attn"][n]).reshape(leaf.shape))
+    return cache
 
 
 def _check_backend(kernel_backend):
@@ -633,16 +762,20 @@ def _check_backend(kernel_backend):
                          f"{kernel_backend!r}")
 
 
-def _extend(cfg, params, cache, tokens, *, window=None, q_chunk=512,
-            kv_chunk=512, kernel_backend="cuda", active=None, layers=None):
+def _extend(cfg, params, cache, tokens, *, window=None, frontend_emb=None,
+            q_chunk=512, kv_chunk=512, kernel_backend="cuda", active=None,
+            layers=None):
     _check_backend(kernel_backend)
-    B, C = tokens.shape
     x = embed_tokens(tokens, params["embed"]["w"])
+    if cfg.frontend == "vision" and frontend_emb is not None:
+        x = prepend_frontend(cfg, params, x, frontend_emb)
+    C = x.shape[1]
     pos = cache["pos"][:, None] + torch.arange(
         C, dtype=torch.int32, device=tokens.device)[None, :]
     ctx = {"pos": pos, "window": window, "q_chunk": q_chunk,
            "kv_chunk": kv_chunk, "ssm_chunk": 32,
-           "kernel_backend": kernel_backend, "active": active}
+           "kernel_backend": kernel_backend, "active": active,
+           "enc_out": cache.get("enc_out")}
     layers = layer_views(cfg, params) if layers is None else layers
     x = _run_trunk(cfg, layers, x, cache, ctx)
     if active is None:
@@ -653,29 +786,38 @@ def _extend(cfg, params, cache, tokens, *, window=None, q_chunk=512,
     return lm_logits(x_last, params)
 
 
-def extend(cfg, params, cache, tokens, *, window=None, q_chunk=512,
-           kv_chunk=512, kernel_backend="cuda"):
+def extend(cfg, params, cache, tokens, *, window=None, frontend_emb=None,
+           q_chunk=512, kv_chunk=512, kernel_backend="cuda"):
     """Process a chunk of C tokens against the cache (C == 1 => decode
-    step).  tokens: (B, C) int.  Updates ``cache`` in place and returns
-    (logits_last (B, V), cache)."""
+    step).  tokens: (B, C) int; a vision config's ``frontend_emb`` (B, F,
+    frontend_dim) goes before them, making the chunk F + C long.  Updates
+    ``cache`` in place and returns (logits_last (B, V), cache)."""
     logits = _extend(cfg, params, cache, tokens, window=window,
-                     q_chunk=q_chunk, kv_chunk=kv_chunk,
-                     kernel_backend=kernel_backend)
+                     frontend_emb=frontend_emb, q_chunk=q_chunk,
+                     kv_chunk=kv_chunk, kernel_backend=kernel_backend)
     return logits, cache
 
 
 def prefill(cfg, params, tokens, *, max_len=None, window=None,
-            dtype=torch.bfloat16, kv_dtype=None, q_chunk=512, kv_chunk=512,
-            kernel_backend="cuda"):
-    """Full prefill of the text-only decoders: a fresh batch-``B`` cache of
-    ``max_len`` (default: the prompt's length) and one :func:`extend` over
-    the whole prompt.  tokens: (B, S) int on the parameters' device.
-    Returns (logits_last (B, V), cache)."""
+            frontend_emb=None, dtype=torch.bfloat16, kv_dtype=None,
+            q_chunk=512, kv_chunk=512, kernel_backend="cuda"):
+    """Full prefill: a fresh batch-``B`` cache of ``max_len`` (default: the
+    prompt's length, plus ``frontend_tokens`` for a vision config) and one
+    :func:`extend` over the whole prompt.  ``frontend_emb`` is an
+    encoder-decoder's frames (encoded into the cache) or a vision config's
+    patch embeddings (prepended to the prompt).  tokens: (B, S) int on the
+    parameters' device.  Returns (logits_last (B, V), cache)."""
     B, S = tokens.shape
-    cache = init_cache(cfg, params, B, max_len or S, dtype, window=window,
-                       kv_dtype=kv_dtype)
-    return extend(cfg, params, cache, tokens, window=window, q_chunk=q_chunk,
-                  kv_chunk=kv_chunk, kernel_backend=kernel_backend)
+    vision = cfg.frontend == "vision"
+    cache = init_cache(cfg, params, B,
+                       max_len or S + (cfg.frontend_tokens if vision else 0),
+                       dtype, window=window, kv_dtype=kv_dtype,
+                       frontend_emb=frontend_emb if cfg.is_encoder_decoder
+                       else None)
+    return extend(cfg, params, cache, tokens, window=window,
+                  frontend_emb=frontend_emb if vision else None,
+                  q_chunk=q_chunk, kv_chunk=kv_chunk,
+                  kernel_backend=kernel_backend)
 
 
 def extend_row(cfg, params, pool, tokens, slot: int, kv_limit=None,
@@ -737,5 +879,6 @@ def decode_run(cfg, params, cache, tokens, active, n_steps: int,
 
 
 __all__ = ["layout", "check_supported", "check_trainable", "init_params",
-           "init_cache", "forward", "extend", "extend_row", "decode_step",
-           "decode_run", "layer_views", "KERNEL_BACKENDS"]
+           "init_cache", "forward", "encode", "prepend_frontend", "extend",
+           "extend_row", "decode_step", "decode_run", "layer_views",
+           "KERNEL_BACKENDS"]

@@ -8,7 +8,9 @@ remat: once in the forward, once in the backward's recompute) and its
 backward the CUDA ``flash_attention_bwd`` kernel; the MoE expert products
 and the recurrent scans run on the plain path
 (``models.check_trainable``).  The MoE aux loss, summed over the layers by
-``forward``, enters the loss at ``router_aux_loss_coef``.
+``forward``, enters the loss at ``router_aux_loss_coef``.  A batch may
+carry the frontend's embeddings under ``"frontend"``: an encoder-decoder's
+frames, or a vision config's patches, whose positions the loss skips.
 """
 from __future__ import annotations
 
@@ -22,16 +24,17 @@ from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state, param_leaves)
 
 
-def lm_loss(cfg, params, tokens, *, q_chunk=512, kv_chunk=512, remat=True,
-            kernel_backend="cuda"):
+def lm_loss(cfg, params, tokens, frontend_emb=None, *, q_chunk=512,
+            kv_chunk=512, remat=True, kernel_backend="cuda"):
     """Next-token cross entropy in f32 plus ``router_aux_loss_coef`` times
-    the MoE aux loss.  tokens: (B, S+1) -> predict [1:] from [:-1].
-    Returns (loss, {"nll", "aux"})."""
+    the MoE aux loss.  tokens: (B, S+1) -> predict [1:] from [:-1]; with
+    prepended patches (vision) only the text positions, the logits' last
+    S, are scored.  Returns (loss, {"nll", "aux"})."""
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(cfg, params, inp, q_chunk=q_chunk,
+    logits, aux = forward(cfg, params, inp, frontend_emb, q_chunk=q_chunk,
                           kv_chunk=kv_chunk, remat=remat,
                           kernel_backend=kernel_backend)
-    logits = logits.float()
+    logits = logits[:, -inp.shape[1]:].float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, tgt.long()[..., None])[..., 0]
     nll = (logz - gold).mean()
@@ -39,14 +42,14 @@ def lm_loss(cfg, params, tokens, *, q_chunk=512, kv_chunk=512, remat=True,
     return loss, {"nll": nll, "aux": aux}
 
 
-def loss_and_grads(cfg, params, tokens, **kw):
+def loss_and_grads(cfg, params, tokens, frontend_emb=None, **kw):
     """``lm_loss`` and its gradient with respect to every parameter (as
     ``jax.value_and_grad`` gives it): returns (loss, metrics, grads by
     state_dict name).  The gradients are also left in ``p.grad``."""
     for _, p in param_leaves(params):
         p.requires_grad_(True)
         p.grad = None
-    loss, met = lm_loss(cfg, params, tokens, **kw)
+    loss, met = lm_loss(cfg, params, tokens, frontend_emb, **kw)
     loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in param_leaves(params)}
@@ -57,13 +60,16 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *, q_chunk=512, kv_chunk=512,
                     remat=True, kernel_backend="cuda") -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), updating the parameters in place.  batch = {"tokens":
-    (B, S+1) int}, numpy or a tensor; it is moved to the parameters'
-    device."""
+    (B, S+1) int, ["frontend": (B, F, frontend_dim)]}, numpy or tensors;
+    they are moved to the parameters' device."""
     def train_step(params, opt_state, batch):
         dev = opt_state.step.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
+        fe = batch.get("frontend")
+        if fe is not None:
+            fe = torch.as_tensor(fe).to(dev)
         loss, met, grads = loss_and_grads(
-            cfg, params, tokens, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            cfg, params, tokens, fe, q_chunk=q_chunk, kv_chunk=kv_chunk,
             remat=remat, kernel_backend=kernel_backend)
         for _, p in param_leaves(params):
             p.grad = None  # the update consumes grads; free them after it

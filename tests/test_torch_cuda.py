@@ -2,8 +2,10 @@
 256, the training flash attention and its backward, the MoE grouped expert
 GEMM, the RG-LRU and WKV6 scans) against their plain versions, the tiny
 serving paths (dense, MoE, RG-LRU hybrid, RWKV6) through the kernels
-against the plain path, and a tiny training step's loss and gradients
-through the kernels against the plain path.  Every test here is
+against the plain path, the attention kernels at the encoder-decoder and
+vision forms' heads and those forms' tiny prefill and decode through the
+kernels against the plain path, and a tiny training step's loss and
+gradients through the kernels against the plain path.  Every test here is
 marked ``cuda`` and skips without an NVIDIA GPU;
 on the card run them with ``python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the file imports no JAX).
@@ -18,6 +20,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import quantize_kv
 from torch_attention_cases import (DECODE_CASES, POOL_CASES, decode_case,
                                    pool_call, pool_case, to_torch)
+from torch_frontend_cases import (LLAVA, WHISPER, frames, frontend_tiny,
+                                  tokens)
 from torch_recurrent_cases import (RGLRU_CASES, RWKV6_CASES, TAIL,
                                    rglru_case, rwkv6_case, tiny)
 
@@ -1295,3 +1299,105 @@ def test_masked_decode_run_issues_no_host_sync(cuda, arch):
     torch.cuda.synchronize()
     assert block.shape == (3, 4)
     assert pool["pos"].tolist() == [18, 12, 18, 18]
+
+
+# -- the encoder-decoder and vision forms --------------------------------------
+# (Hq, Hkv, hd): whisper-tiny's 6/6 heads of 64 (G 1) and llava-next-34b's
+# 56/8 heads of 128 (G 7: the pool kernel's 64-row blocks of packed
+# (query, head-in-group) rows straddle queries, and the decode kernel's
+# 16-row tiles hold 7 live rows)
+FRONTEND_HEADS = [(6, 6, 64), (56, 8, 128)]
+
+
+def _heads_id(h):
+    return f"{h[0]}/{h[1]}hd{h[2]}"
+
+
+@pytest.mark.parametrize("heads", FRONTEND_HEADS, ids=_heads_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_at_frontend_heads(cuda, heads, dtype):
+    """Four rows over a 128-slot ring (whisper's serve) and one row over a
+    4096-slot ring with 3016 live (llava's): the fewest and the most
+    splits."""
+    Hq, Hkv, hd = heads
+    for B, S, live in ((4, 128, 96), (1, 4096, 3016)):
+        args, kw = _decode_inputs(cuda, B, Hq, Hkv, hd, S, live=live,
+                                  dtype=dtype, seed=Hq + B)
+        got = ops.decode_attention(*args, **kw)
+        again = ops.decode_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _assert_close(got, ref.decode_attention(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("heads", FRONTEND_HEADS, ids=_heads_id)
+@pytest.mark.parametrize("C,S,end", [(3, 700, 650), (64, 700, 650),
+                                     (300, 700, 650), (3008, 4096, 3007)])
+def test_pool_kernel_at_frontend_heads(cuda, heads, C, S, end):
+    """Chunks of 3, 64 and 300 queries after earlier positions, and
+    llava's fresh 3008-token chunk (2880 patches and 128 prompt tokens)
+    over a 4096-slot ring."""
+    Hq, Hkv, hd = heads
+    args, kw = _pool_inputs(cuda, C, Hq // Hkv, Hkv, hd, S=S, end=end,
+                            seed=C + hd)
+    got = ops.flash_attention_pool(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    _assert_close(got, ref.flash_attention_pool(*args, **kw), torch.bfloat16)
+
+
+@pytest.mark.parametrize("heads", FRONTEND_HEADS, ids=_heads_id)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_frontend_heads(cuda, heads, dtype):
+    """The training forward (output and lse) and backward at the two
+    decoders' heads, S 300 causal."""
+    Hq, Hkv, hd = heads
+    q, k, v, d_out = _flash_case((1, Hq, Hkv, 300, 300, hd, None), dtype,
+                                 cuda, seed=Hq)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    want, want_lse = ref.flash_attention_lse(q, k, v)
+    _assert_close(out, want, dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    args = (q, k, v, want, want_lse, d_out)
+    grads = ops.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    for got, w in zip(grads, ref.flash_attention_bwd(*args)):
+        _assert_close(got, w, dtype)
+
+
+@pytest.mark.parametrize("arch", [WHISPER, LLAVA])
+def test_tiny_frontend_forms_through_kernels_match_plain(cuda, arch):
+    """Tiny whisper (frames through the encoder, cross attention) and
+    llava (patches prepended): ``prefill`` and a masked 6-step
+    ``decode_run`` with ``kernel_backend="cuda"`` launch one pool kernel an
+    attention layer and one decode kernel an attention layer and step
+    (the encoder and the cross attention none), and give the plain path's
+    logits (f32, 1e-4) and tokens."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import decode_run, init_params, layout, prefill
+    cfg = frontend_tiny(get_tiny_config, arch)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    toks = torch.from_numpy(tokens(cfg, (3, 20))).to(cuda)
+    fe = torch.from_numpy(frames(cfg, 3)).to(cuda)
+    active = torch.tensor([True, False, True], device=cuda)
+    n_attn = layout(cfg)[1].count("attn") * layout(cfg)[2]
+    out = {}
+    for backend in ("cuda", "plain"):
+        before = dict(ops.LAUNCHES)
+        lg, cache = prefill(cfg, params, toks, frontend_emb=fe, max_len=64,
+                            dtype=torch.float32, kernel_backend=backend)
+        block, _, cache = decode_run(cfg, params, cache,
+                                     lg.argmax(-1).to(torch.int32), active,
+                                     6, kv_limit=64, full_alloc=64,
+                                     kernel_backend=backend)
+        torch.cuda.synchronize()
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in before
+                    if ops.LAUNCHES[k] != before[k]}
+        assert launched == ({"flash_attention_pool": n_attn,
+                             "decode_attention": 6 * n_attn}
+                            if backend == "cuda" else {}), launched
+        out[backend] = (lg, block, cache["pos"])
+    torch.testing.assert_close(out["cuda"][0], out["plain"][0], rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][1], out["plain"][1])
+    assert torch.equal(out["cuda"][2], out["plain"][2])

@@ -23,6 +23,7 @@ from repro_torch import models as T
 from repro_torch.configs import get_tiny_config as t_tiny
 from repro_torch.kernels import ops
 from repro_torch.models import ssm as tssm
+import torch_frontend_cases as tfc
 import torch_train_cases as ttc
 from torch_recurrent_cases import (DENSE_HEAD, RECURRENT_ARCHS, RGLRU_CASES,
                                    TAIL, rglru_case, rwkv6_case, tiny)
@@ -57,7 +58,9 @@ _FIRST = {"llama3.2-3b": ("blocks.0.attn.wq", None),
           "rwkv6-1.6b": ("blocks.0.tm.wr", None),
           "recurrentgemma-9b": ("blocks.0.rg.w_x", None),
           TAIL: ("blocks.0.rg.w_x", "tail.1.rg.w_x"),
-          MLA: ("blocks.0.attn.w_uk", None)}
+          MLA: ("blocks.0.attn.w_uk", None),
+          "whisper-tiny": ("blocks.0.attn.xq", None),
+          "llava-next-34b": ("blocks.0.attn.wq", None)}
 
 
 @pytest.mark.parametrize("arch", sorted(_FIRST))
@@ -512,11 +515,26 @@ def test_prefix_copy_snapshot_paste_match_jax(hit, hit_cap, arch, dtype,
     assert tpool["pos"].tolist() == np.asarray(jpool["pos"]).tolist()
 
 
-@pytest.mark.parametrize("arch", ["llava-next-34b", "whisper-tiny"])
-def test_unported_families_raise_naming_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(t_tiny(arch), seed=0, dtype=torch.float32,
-                      device="cpu")
+@pytest.mark.parametrize("arch", [tfc.WHISPER, tfc.LLAVA])
+@pytest.mark.parametrize("backend_cls", ["TorchRealBackend",
+                                         "DualDeviceBackend"])
+def test_real_backends_refuse_frontend_forms(backend_cls, arch):
+    """The model API takes both forms; the serving backends refuse them
+    with the reference's messages, in its order (the encoder-decoder check
+    first: whisper has a frontend too)."""
+    from repro.core.backend import JaxRealBackend
+    from repro_torch.core import backend as tb
+    cfg = t_tiny(arch)
+    T.check_supported(cfg)
+    T.check_trainable(cfg)
+    params = T.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    assert tb.TorchRealBackend._ENC_DEC_MSG.replace(
+        "TorchRealBackend", "JaxRealBackend") == JaxRealBackend._ENC_DEC_MSG
+    msg = "cannot serve encoder-decoder configs" if cfg.is_encoder_decoder \
+        else "serves text-only decoders"
+    with pytest.raises(NotImplementedError, match=msg):
+        getattr(tb, backend_cls)(cfg, params, pool_slots=2, max_len=32,
+                                 device="cpu")
 
 
 # -- MLA (DeepSeek-V2) ---------------------------------------------------------
@@ -810,12 +828,204 @@ def test_remat_leaves_gradients_unchanged(arch, backend):
         assert torch.equal(g, runs[1][2][name]), name
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-34b"])
-def test_training_forward_of_unported_families_raises(arch):
-    cfg = t_tiny(arch)
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(cfg, None, toks, kernel_backend="plain")
+# -- the encoder-decoder and vision-prefix forms --------------------------------
+# whisper-tiny (an encoder over the frames, cross attention in every
+# decoder layer) and llava-next-34b (patches prepended to the prompt),
+# tiny, and variants with frontend_dim != d_model (frontend_proj: llava's
+# for the prepend, whisper's for the encoder), against the reference on the same weights and frames
+# (tests/torch_frontend_cases.py): logits at the consistency tolerances
+# (3e-3 forward, prefill and a C > 1 extend, 1e-2 a decode step), greedy
+# streams equal, the encoder, the cross K/V and full_attention to 1e-5
+# (f32, summation order only), the loss, aux and every gradient leaf to
+# tests/torch_train_cases.py's limits.
+@pytest.mark.parametrize("arch", tfc.PARITY_ARCHS)
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_frontend_forms_match_jax(arch, backend):
+    jcfg, jp, tcfg = tfc.weights(arch)
+    want = tfc.jax_serve(arch)
+    tp = tfc.port(jp)
+    toks = torch.from_numpy(tfc.tokens(jcfg, (2, tfc.PROMPT)))
+    fe = torch.from_numpy(tfc.frames(jcfg, 2))
+    logits, _ = T.forward(tcfg, tp, toks, fe, kernel_backend=backend)
+    extra = 0 if jcfg.is_encoder_decoder else jcfg.frontend_tokens
+    assert logits.shape == (2, tfc.PROMPT + extra, jcfg.vocab_size)
+    _close(logits, want["forward"], 3e-3)
+    lg, cache = T.prefill(tcfg, tp, toks, frontend_emb=fe,
+                          max_len=tfc.MAX_LEN, dtype=torch.float32,
+                          kernel_backend=backend)
+    _close(lg, want["prefill"], 3e-3)
+    for name, tol in (("chunk", 3e-3), ("step", 1e-2)):
+        lg, cache = T.extend(tcfg, tp, cache, torch.from_numpy(want[name]),
+                             kernel_backend=backend)
+        _close(lg, want["extend" if name == "chunk" else "decode"], tol)
+    block, _, cache = T.decode_run(tcfg, tp, cache,
+                                   torch.from_numpy(want["last"]),
+                                   torch.ones(2, dtype=torch.bool), 8,
+                                   kernel_backend=backend)
+    assert np.array_equal(block.numpy(), want["stream"])
+    assert cache["pos"].tolist() == want["pos"].tolist()
+
+
+@pytest.mark.parametrize("case", ["non-causal", "valid_kv",
+                                  "causal window"])
+def test_full_attention_matches_jax(case):
+    """Non-causal GQA (G 2) over a key sequence longer than the queries,
+    with a (B, Skv) ``valid_kv`` mask, and causal with a window at the
+    queries' positions."""
+    from repro.models.attention import full_attention as jfull
+    from repro_torch.models.attention import full_attention as tfull
+    rng = np.random.default_rng(5)
+    B, Sq, Skv, Hq, Hkv, hd = 2, 5, 11, 4, 2, 16
+    q, k, v = (rng.standard_normal(shape, dtype=np.float32)
+               for shape in ((B, Sq, Hq, hd), (B, Skv, Hkv, hd),
+                             (B, Skv, Hkv, hd)))
+    kw = {}
+    if case == "valid_kv":
+        valid = rng.random((B, Skv)) > 0.4
+        valid[:, 0] = True
+        kw = dict(valid_kv=valid)
+    elif case == "causal window":
+        kw = dict(causal=True, window=4,
+                  pos_q=np.arange(Skv - Sq, Skv, dtype=np.int32),
+                  pos_kv=np.arange(Skv, dtype=np.int32))
+    want = jfull(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 **{n: x if np.isscalar(x) else jnp.asarray(x)
+                    for n, x in kw.items()})
+    got = tfull(torch.from_numpy(q), torch.from_numpy(k),
+                torch.from_numpy(v),
+                **{n: x if np.isscalar(x) else torch.from_numpy(x)
+                   for n, x in kw.items()})
+    assert got.shape == (B, Sq, Hq, hd)
+    _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("arch", [tfc.WHISPER, tfc.WHISPER + tfc.PROJ])
+def test_encoder_and_cross_kv_match_jax(arch):
+    """``encode`` (through ``frontend_proj`` in the variant) and
+    ``init_cache``'s ``enc_out`` and per-layer cross K/V; every cache leaf
+    of the reference's shape; no frames, no encoder: the reference
+    asserts, the port raises."""
+    from repro.models import transformer as JT
+    jcfg, jp, tcfg = tfc.weights(arch)
+    tp = tfc.port(jp)
+    fe = tfc.frames(jcfg, 2)
+    _close(T.encode(tcfg, tp, torch.from_numpy(fe)),
+           JT.encode(jcfg, jp, jnp.asarray(fe)), 1e-5)
+    jc = J.init_cache(jcfg, jp, 2, 32, jnp.float32,
+                      frontend_emb=jnp.asarray(fe))
+    tc = T.init_cache(tcfg, tp, 2, 32, torch.float32,
+                      frontend_emb=torch.from_numpy(fe))
+    _close(tc["enc_out"], jc["enc_out"], 1e-5)
+    for n in ("xk", "xv"):
+        assert tc["blocks"]["0"][n].dtype == torch.float32
+        _close(tc["blocks"]["0"][n], jc["blocks"]["0"][n], 1e-5)
+    assert sorted(tuple(x.shape) for x in _flat(tc)) == sorted(
+        tuple(x.shape) for x in jax.tree_util.tree_leaves(jc))
+    with pytest.raises(AssertionError):
+        J.init_cache(jcfg, jp, 2, 32, jnp.float32)
+    with pytest.raises(ValueError, match="frontend_emb"):
+        T.init_cache(tcfg, tp, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="frontend_emb"):
+        T.forward(tcfg, tp, torch.zeros((1, 4), dtype=torch.int64),
+                  kernel_backend="plain")
+
+
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_whisper_masked_decode_matches_jax(backend):
+    """``decode_step`` then ``decode_run`` over a 4-row whisper cache with
+    row 2 inactive, bounded to kv_limit 32 of 64: the active rows' tokens
+    (and the step's logits, 1e-2) equal the reference's, and row 2's every
+    leaf (its ring, its cross K/V, ``enc_out``) and position stay bit for
+    bit."""
+    jcfg, jp, tcfg = tfc.weights(tfc.WHISPER)
+    tp = tfc.port(jp)
+    toks, fe = tfc.tokens(jcfg, (4, 10)), tfc.frames(jcfg, 4)
+    jl, jc = J.prefill(jcfg, jp, jnp.asarray(toks), max_len=64,
+                       dtype=jnp.float32, frontend_emb=jnp.asarray(fe))
+    _, tc = T.prefill(tcfg, tp, torch.from_numpy(toks), max_len=64,
+                      dtype=torch.float32, frontend_emb=torch.from_numpy(fe),
+                      kernel_backend=backend)
+    last = np.array(jnp.argmax(jl, -1), np.int32)
+    active = np.asarray([True, True, False, True])
+    kw = dict(kv_limit=32, full_alloc=64)
+    ta = torch.from_numpy(active)
+    before = _row(tc, 2) + [tc["enc_out"][2].clone(), tc["pos"].clone()]
+    jn, jlg, jc = J.decode_step(jcfg, jp, jc, jnp.asarray(last),
+                                jnp.asarray(active), **kw)
+    tn, tlg, tc = T.decode_step(tcfg, tp, tc, torch.from_numpy(last), ta,
+                                kernel_backend=backend, **kw)
+    assert np.array_equal(tn.numpy()[active], np.asarray(jn)[active])
+    _close(tlg[ta], np.asarray(jlg)[active], 1e-2)
+    nxt = np.where(active, np.asarray(jn), last).astype(np.int32)
+    jblock, _, jc = J.decode_run(jcfg, jp, jc, jnp.asarray(nxt),
+                                 jnp.asarray(active), 6, **kw)
+    tblock, _, tc = T.decode_run(tcfg, tp, tc, torch.from_numpy(nxt), ta, 6,
+                                 kernel_backend=backend, **kw)
+    assert np.array_equal(tblock.numpy()[:, active],
+                          np.asarray(jblock)[:, active])
+    assert tc["pos"].tolist() == np.asarray(jc["pos"]).tolist() \
+        == [17, 17, 10, 17]
+    after = _row(tc, 2) + [tc["enc_out"][2], before[-1]]
+    assert all(torch.equal(x, y) for x, y in zip(after, before))
+
+
+@pytest.mark.parametrize("arch", tfc.PARITY_ARCHS)
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_frontend_lm_loss_and_grads_match_jax(arch, backend):
+    """``lm_loss`` with the frames (whisper) or the prepended patches,
+    whose positions the loss skips (llava), and every gradient leaf, the
+    encoder's, the cross attention's and ``frontend_proj``'s among them."""
+    from repro_torch.train.train_loop import loss_and_grads
+    jcfg, jp, tcfg = tfc.weights(arch)
+    jloss, jnll, jaux, want = tfc.jax_loss_and_grads(arch, TRAIN_S)
+    toks = tfc.tokens(jcfg, (2, TRAIN_S + 1))
+    loss, met, grads = loss_and_grads(
+        tcfg, tfc.port(jp), torch.from_numpy(toks),
+        torch.from_numpy(tfc.frames(jcfg, 2)), kernel_backend=backend)
+    ttc.assert_rel(float(loss), jloss, ttc.LOSS_REL, "loss")
+    ttc.assert_rel(float(met["nll"]), jnll, ttc.LOSS_REL, "nll")
+    assert float(met["aux"]) == jaux == 0.0
+    assert any(n.startswith("encoder.") for n in want) == \
+        jcfg.is_encoder_decoder
+    assert ("frontend_proj.w" in want) == arch.endswith(tfc.PROJ)
+    ttc.assert_grads_match(grads, want)
+
+
+@pytest.mark.parametrize("arch", [tfc.WHISPER, tfc.LLAVA])
+@pytest.mark.parametrize("backend", ["plain", "cuda"])
+def test_frontend_prefill_and_decode_match_forward(arch, backend):
+    """tests/test_consistency.py's two checks within the port: the
+    prefill's logits are the training forward's last position (3e-3), and
+    a decode step's are the forward's on the longer sequence (1e-2)."""
+    _, jp, cfg = tfc.weights(arch)
+    params = tfc.port(jp)
+    toks = torch.from_numpy(tfc.tokens(cfg, (2, 16)))
+    fe = torch.from_numpy(tfc.frames(cfg, 2) * 0.2)
+    full, _ = T.forward(cfg, params, toks, fe, kernel_backend=backend)
+    lg, cache = T.prefill(cfg, params, toks, max_len=48, frontend_emb=fe,
+                          dtype=torch.float32, kernel_backend=backend)
+    _close(lg, full[:, -1].detach(), 3e-3)
+    nxt = lg.argmax(-1)[:, None]
+    lg2, _ = T.extend(cfg, params, cache, nxt, kernel_backend=backend)
+    longer, _ = T.forward(cfg, params, torch.cat([toks, nxt], 1), fe,
+                          kernel_backend=backend)
+    _close(lg2, longer[:, -1].detach(), 1e-2)
+
+
+@pytest.mark.parametrize("arch", tfc.FRONTEND_ARCHS)
+def test_init_params_has_the_reference_tree(arch):
+    """The port's own ``init_params`` draws every leaf of the reference's
+    tree (the decoder's cross attention and ``norm_x``, the stacked
+    ``encoder``, ``frontend_proj``) at its shape and dtype."""
+    jcfg, _, tcfg = tfc.weights(arch)
+    jp = J.init_params(jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    want = {".".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): (leaf.shape, str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_leaves_with_path(jp)}
+    sd = T.init_params(tcfg, seed=0, device="cpu").state_dict()
+    got = {n: (tuple(x.shape), str(x.dtype).removeprefix("torch."))
+           for n, x in sd.items()}
+    assert got == want
 
 
 # -- the stage-decoupled handoff and the scratch bind (DESIGN.md §14) ---------

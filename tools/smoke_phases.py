@@ -14,7 +14,11 @@ PHASE is one of
 - ``lr:ARCH:LR[,LR...]``: the learning-rate trials of ARCH: for each LR,
   fresh weights (seed ``SEED``, the family's depth cut) and
   ``TRAIN_STEPS`` AdamW steps through ``train_loop.train`` on the
-  synthetic corpus at ``TRAIN_BATCH x TRAIN_SEQ``, the losses printed;
+  synthetic corpus at ``TRAIN_BATCH x TRAIN_SEQ`` (the frontend forms:
+  ``TRAIN_FRONTEND_BATCH`` rows with their frames or patches), the losses
+  printed;
+- ``encdec``: ``whisper-tiny``'s ``[encdec]`` phase (``encdec_phase``);
+- ``vision``: ``llava-next-34b``'s ``[vision]`` phase (``vision_phase``);
 - ``examples``: the four ``examples/*_torch.py`` files (``examples_phase``);
 - ``prefix_store``: the snapshot-store serve on ``llama3.2-3b``
   (``prefix_store_phase``);
@@ -42,19 +46,19 @@ import chip_smoke as cs  # noqa: E402
 
 def lr_trials(arch, lrs):
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import PipelineConfig, batches
     from repro_torch.models import init_params
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_loop import train
     torch.set_float32_matmul_precision("highest")
     cut = cs.TRAIN_FAMILIES[arch]
     cfg = get_config(arch).with_overrides(**cut) if cut else get_config(arch)
+    batch = cs.TRAIN_BATCH if cfg.frontend == "none" else \
+        cs.TRAIN_FRONTEND_BATCH
+    frontend = cs._frontend_emb(cfg, batch, torch.float32, cs.SEED + 4)
     for lr in lrs:
         params = init_params(cfg, seed=cs.SEED, dtype=torch.float32,
                              device="cuda")
-        data = batches(PipelineConfig(batch_size=cs.TRAIN_BATCH,
-                                      seq_len=cs.TRAIN_SEQ, vocab_size=259,
-                                      seed=cs.SEED))
+        data = cs._train_data(cfg, batch, frontend)
         opt = AdamWConfig(lr=lr, warmup_steps=max(cs.TRAIN_STEPS // 10, 1),
                           total_steps=cs.TRAIN_STEPS)
         hist = train(cfg, params, data, opt, cs.TRAIN_STEPS, log_every=1,
@@ -95,6 +99,10 @@ def main(argv):
             lr_trials(arch, [float(x) for x in lrs.split(",")])
         elif name == "examples":
             cs.examples_phase()
+        elif name == "encdec":
+            cs.encdec_phase(smi)
+        elif name == "vision":
+            cs.vision_phase(smi)
         elif name == "dual" and rest and rest != cs.ARCH:
             cfg, params = cs._init(rest)
             cs.dual_phases(cfg, params, 2)
