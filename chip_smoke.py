@@ -68,8 +68,14 @@ every token held to the plain path (llava's to the plain path's own bf16
 floor plus the margin, a gate that planted attention faults must fail;
 its f32 weights do not fit on the card); both forms also train in
 ``[train]`` (whisper whole, llava cut to 4 of 60 layers, batch 1 with
-the frames or patches); then prints the kernel table as JSON and, as its last
-line, ``{"ok": true, "device": {...}}``.  Any failed phase
+the frames or patches); then ``[shard]``: ``llama3.2-3b`` at full width on
+the 1x1 host mesh with DTensor parameters, batch-sharded through the
+attention kernels (launches and logits equal to the unsharded run's) and
+tensor-parallel on the plain path (tokens within the margin of the plain
+run's), and the full-width dry run of ``llama3-405b`` x ``decode_32k`` on
+the 16x16 mesh in a process of its own; then prints the kernel table
+as JSON and, as its last line, ``{"ok": true, "device": {...}}``.  Any
+failed phase
 raises, and the script exits non-zero without that line — also when no GPU
 is visible or when run outside the repository.  Imports no JAX.
 """
@@ -204,6 +210,11 @@ PATH_KERNELS = {ARCH: ("decode_attention", "flash_attention_pool"),
 # ring; [vision]: llava-next-34b's prompt tokens (after its 2880 patches)
 # and decode steps, and its ring
 ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS, ENCDEC_MAX_LEN = 4, 64, 32, 128
+# [shard]: llama3.2-3b on the 1x1 host mesh, a SHARD_PROMPT-token prefill of
+# SHARD_BATCH rows and SHARD_STEPS decode extend calls; and one dry-run
+# combination at full width (SHARD_DRYRUN: arch, shape; the 16x16 mesh)
+SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS = 2, 512, 8
+SHARD_DRYRUN = ("llama3-405b", "decode_32k")
 VISION_PROMPT, VISION_STEPS, VISION_MAX_LEN = 128, 16, 4096
 # the frontend forms' attention calls in [encdec] and [vision] (the
 # kernel_phase cases): (name, rows, chunk or None for decode, ring slots,
@@ -3311,6 +3322,143 @@ def vision_phase(smi):
                 gate=limit, planted_fault_gaps=faults, profile=prof)
 
 
+def _shard_run(cfg, params, toks, feed, **kw):
+    """A SHARD_PROMPT-token prefill and SHARD_STEPS decode ``extend``
+    calls, each step fed ``feed``'s token (teacher-forced, so every run
+    sees the same inputs) or, without one, its own argmax: (the logits of
+    every call, whole, the greedy tokens, the kernel launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import extend, prefill
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).float()
+    ops.reset_launches()
+    with torch.no_grad():
+        lg, cache = prefill(cfg, params, toks, max_len=SHARD_PROMPT
+                            + SHARD_STEPS, dtype=torch.bfloat16, **kw)
+        logits, greedy = [whole(lg)], []
+        for i in range(SHARD_STEPS):
+            greedy.append(logits[-1].argmax(-1).to(torch.int32))
+            nxt = greedy[-1] if feed is None else feed[i]
+            lg, cache = extend(cfg, params, cache, nxt[:, None], **kw)
+            logits.append(whole(lg))
+    torch.cuda.synchronize()
+    return logits, torch.stack(greedy), dict(ops.LAUNCHES)
+
+
+def shard_dryrun():
+    """One dry-run combination at full width (``SHARD_DRYRUN`` on the 16x16
+    mesh) in a process of its own (it starts a fake 512-rank group): its
+    record."""
+    arch, shape = SHARD_DRYRUN
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "dryrun_smoke")
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", shape, "--out", out],
+                       env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"[shard] dry run failed:\n{r.stdout[-3000:]}"
+                             f"\n{r.stderr[-3000:]}")
+    with open(os.path.join(out, f"{arch}_{shape}_16x16.json")) as f:
+        rec = json.load(f)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def shard_phase(smi):
+    """[shard]: ``llama3.2-3b`` at full width in bf16 on the 1x1 host mesh
+    (``make_host_mesh``: a world-1 NCCL group), its parameters DTensors
+    (``param_shardings``).  (a) ``batch_axes="data"`` with the kernels: the
+    attention kernels run on the rank's rows through ``local_map``, so the
+    launches equal the unsharded run's and the logits are bit-equal to it.
+    (b) with ``tp_axis="model"`` too: attention on the plain path (0
+    launches), split-KV decode over the model axis; the greedy tokens are
+    the unsharded plain run's, or within LOGIT_MARGIN of its argmax.  Then
+    the full-width dry run of ``SHARD_DRYRUN``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import param_shardings
+    cfg, params = _init(ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    toks = torch.randint(0, cfg.vocab_size, (SHARD_BATCH, SHARD_PROMPT),
+                         generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    ref_cuda, greedy_cuda, n_cuda = _shard_run(cfg, params, toks, None,
+                                               kernel_backend="cuda")
+    ref_plain, greedy_plain, _ = _shard_run(cfg, params, toks, None,
+                                            kernel_backend="plain")
+    t_plain = time.perf_counter() - t0
+    mesh = make_host_mesh()
+    param_shardings(params, mesh)
+    t0 = time.perf_counter()
+    got, _, n_rows = _shard_run(cfg, params, toks, greedy_cuda,
+                                batch_axes="data", kernel_backend="cuda")
+    t_rows = time.perf_counter() - t0
+    attn = ("decode_attention", "flash_attention_pool")
+    want_launches = {k: n_cuda[k] for k in attn}
+    assert {k: n_rows[k] for k in attn} == want_launches, (n_rows,
+                                                           want_launches)
+    assert want_launches["flash_attention_pool"] > 0 and \
+        want_launches["decode_attention"] > 0, want_launches
+    unequal = [i for i, (a, b) in enumerate(zip(got, ref_cuda))
+               if not torch.equal(a, b)]
+    assert not unequal, f"[shard] batch-sharded logits differ at {unequal}"
+    log(f"[shard] {ARCH} batch_axes=data, cuda kernels on 1x1 "
+        f"{mesh.mesh_dim_names}: launches {n_rows['flash_attention_pool']} "
+        f"pool + {n_rows['decode_attention']} decode (unsharded "
+        f"{want_launches['flash_attention_pool']} + "
+        f"{want_launches['decode_attention']}), logits of "
+        f"{len(got)} calls bit-equal to the unsharded run; "
+        f"{t_rows:.2f} s (unsharded cuda + plain {t_plain:.2f} s)")
+    t0 = time.perf_counter()
+    got_tp, greedy_tp, n_tp = _shard_run(cfg, params, toks, greedy_plain,
+                                         batch_axes="data", tp_axis="model",
+                                         kernel_backend="cuda")
+    t_tp = time.perf_counter() - t0
+    assert all(n_tp[k] == 0 for k in attn), n_tp
+    gaps = []
+    for i in range(SHARD_STEPS):
+        lg = got_tp[i]
+        want = greedy_plain[i].long()
+        gaps.append(float((lg.max(-1).values
+                           - lg.gather(-1, want[:, None])[:, 0]).max()))
+    same = int((greedy_tp == greedy_plain).sum())
+    worst = max(gaps)
+    assert worst <= LOGIT_MARGIN, (gaps, LOGIT_MARGIN)
+    log(f"[shard] {ARCH} batch_axes=data tp_axis=model: attention launches "
+        f"{sum(n_tp[k] for k in attn)} (plain path), greedy tokens "
+        f"{same}/{greedy_plain.numel()} equal to the unsharded plain run's, "
+        f"largest gap {worst:.4f} (margin {LOGIT_MARGIN}); {t_tp:.2f} s")
+    del params, got, got_tp, ref_cuda, ref_plain
+    dist.destroy_process_group()
+    _release()
+    rec = shard_dryrun()
+    rf = rec["roofline"]
+    dom = rf["dominant"]
+    log(f"[shard] dryrun {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+        f"(full width, {rec['chips']} chips): flops/chip "
+        f"{rec['hlo_flops_per_chip']:.4e}, bytes/chip "
+        f"{rec['hlo_bytes_per_chip']:.4e}, collective bytes/chip "
+        f"{rec['collective_bytes_per_chip']:.4e}, dominant {dom} "
+        f"{rf[dom]:.6f} s, useful flops {rf['useful_flops_ratio']}; traced "
+        f"in {rec['lower_s']:.1f} s, {rec['wall_s']:.1f} s with its process")
+    log(f"[shard] {smi}")
+    return {"launches": n_rows, "tp_launches": n_tp,
+            "rows_bit_equal": True, "tp_tokens_equal": same,
+            "tp_tokens": greedy_plain.numel(), "tp_gap": worst,
+            "rows_s": t_rows, "tp_s": t_tp, "dryrun": {
+                k: rec[k] for k in ("arch", "shape", "mesh", "chips",
+                                    "hlo_flops_per_chip",
+                                    "hlo_bytes_per_chip",
+                                    "collective_bytes_per_chip",
+                                    "collectives", "roofline", "memory",
+                                    "lower_s", "wall_s")}}
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3349,6 +3497,9 @@ def main():
     phase_done(f"{WHISPER_ARCH} encdec")
     vision = vision_phase(smi)
     phase_done(f"{LLAVA_ARCH} vision")
+    _release()
+    shard = shard_phase(smi)
+    phase_done(f"{ARCH} shard")
     # launches of each kernel in the main-path runs, each counted from 0
     by_path = {f"{ARCH} train": train_stats["launches"],
                **{f"{a} train": st["launches"]
@@ -3373,7 +3524,8 @@ def main():
                **{f"{a} f32": st["f32"]["launches"]
                   for a, st in other.items() if "f32" in st},
                f"{WHISPER_ARCH} encdec": encdec["launches"],
-               f"{LLAVA_ARCH} vision": vision["launches"]}
+               f"{LLAVA_ARCH} vision": vision["launches"],
+               f"{ARCH} shard": shard["launches"]}
     replaces = {"decode_attention":
                 "src/repro/kernels/decode_attention.py:79",
                 "flash_attention_pool":
@@ -3419,6 +3571,7 @@ def main():
     for arch, st in other.items():
         log(json.dumps({f"serve {arch}": st}))
     log(json.dumps({"encdec": encdec, "vision": vision}))
+    log(json.dumps({"shard": shard}))
     log(json.dumps({"kernel_cases": [
         dict(name=k, shape=n, **row) for (k, n), row in kernel_rows.items()]}))
     log(json.dumps({"kernels": kernels}))

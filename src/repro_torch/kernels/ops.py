@@ -15,6 +15,10 @@ copy.
 ``LAUNCHES`` counts kernel launches per kernel (plain integers, incremented
 only where a kernel is launched), so a run can show that its main path went
 through the kernels.
+
+A DTensor argument raises ``TypeError``: a kernel reads one device's
+memory, and a sharded model calls the wrappers on each rank's local
+tensors (``local_map``), never on a DTensor's pointer.
 """
 from __future__ import annotations
 
@@ -37,6 +41,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _local_only(name: str, *ts) -> None:
+    """Refuse DTensor arguments (``None`` entries are skipped)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError(f"{name}: a DTensor argument; call the kernel on "
+                        "each rank's local tensors (local_map)")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -182,6 +194,8 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=None,
     (B, S, Hkv) f32; slot_pos (B, S) and cur_pos (B,) int32.  Reads the
     first ``kv_limit`` slots, in ``decode_splits`` splits merged on the
     device.  Returns (B, Hq, hd)."""
+    _local_only("decode_attention", q, k_cache, v_cache, slot_pos, cur_pos,
+                k_scale, v_scale)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, slot_pos, cur_pos,
                                     window=window, k_scale=k_scale,
@@ -207,6 +221,8 @@ def decode_attention_partials(q, k_cache, v_cache, slot_pos, cur_pos, *,
     DECODE_TILE-slot tiles: f32 m, l (B, Hq, n_split) and acc (B, Hq,
     n_split, hd), as ``ref.decode_attention_partials`` defines them (the
     plain version for a CPU tensor)."""
+    _local_only("decode_attention", q, k_cache, v_cache, slot_pos, cur_pos,
+                k_scale, v_scale)
     if q.device.type == "cpu":
         return ref.decode_attention_partials(
             q, k_cache, v_cache, slot_pos, cur_pos, n_split=n_split,
@@ -256,6 +272,8 @@ def flash_attention_pool(q, k, v, pos_q, pos_kv, *, window=None,
     slots, for bf16 q in ``pool_splits`` splits merged on the device.  The
     rows of q, K and V start on 16-byte boundaries.  Returns (B, Hq, Sq,
     hd)."""
+    _local_only("flash_attention_pool", q, k, v, pos_q, pos_kv, k_scale,
+                v_scale)
     if q.device.type == "cpu":
         return ref.flash_attention_pool(q, k, v, pos_q, pos_kv,
                                         window=window, k_scale=k_scale,
@@ -325,6 +343,7 @@ def moe_gemm(x, w):
     x.dtype, f32 accumulation.  x and w share a dtype (float32 or
     bfloat16); the last axis of each has stride 1, the others any stride.
     C, d and f need not divide any tile."""
+    _local_only("moe_gemm", x, w)
     if x.device.type == "cpu":
         return ref.moe_gemm(x, w)
     out, rc = moe_gemm_with(build.load("moe_gemm"), x, w)
@@ -339,6 +358,7 @@ def moe_gemm_with(lib, x, w, out_dtype=None):
     (x's by default).  Returns (out, the entry point's return code);
     counts no launch."""
     name = "moe_gemm"
+    _local_only(name, x, w)
     _require(x.device.type == "cuda", f"{name}: no kernel for {x.device}")
     _require(w.device == x.device, f"{name}: w must be on {x.device}")
     _require(x.dtype in _DTYPE_CODE and w.dtype == x.dtype,
@@ -372,6 +392,7 @@ def rglru_scan(x, a_log, gate, h0):
     bfloat16 (one dtype), a_log (B, S, W) and h0 (B, W) float32.  The W axis
     has stride 1, the others any stride.  Returns (h (B, S, W) in x.dtype,
     h_final (B, W) float32)."""
+    _local_only("rglru_scan", x, a_log, gate, h0)
     if x.device.type == "cpu":
         return ref.rglru_scan(x, a_log, gate, h0)
     name = "rglru_scan"
@@ -501,6 +522,7 @@ def rwkv6_scan(r, k, v, w_log, u, state0=None):
     float32.  The D axis has stride 1, the others any stride.  Returns (out
     (B, H, S, D) in r.dtype, final state (B, H, D, D) float32)."""
     name = "rwkv6_scan"
+    _local_only(name, r, k, v, w_log, u, state0)
     _require(r.ndim == 4 and k.shape == r.shape == v.shape == w_log.shape,
              f"{name}: r/k/v/w_log {tuple(r.shape)}/{tuple(k.shape)}/"
              f"{tuple(v.shape)}/{tuple(w_log.shape)} are not one "
@@ -606,6 +628,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, pos_base=0,
     over every key, the Pallas kernel over the tiles it did not skip; the
     CUDA kernel does as the Pallas kernel, with its own 32-key tiles (0
     where it skipped them all)."""
+    _local_only("flash_attention", q, k, v)
     if q.device.type == "cpu":
         out, lse = ref.flash_attention_lse(q, k, v, causal=causal,
                                            window=window, pos_base=pos_base)
@@ -637,6 +660,7 @@ def flash_attention_bwd(q, k, v, out, lse, d_out, *, causal=True,
     dtype), returns (dq, dk, dv) in the layouts of q, k and v.  The row sums
     delta = rowsum(d_out o out) are one torch reduction here; every matrix
     product is the kernel's."""
+    _local_only("flash_attention_bwd", q, k, v, out, lse, d_out)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, out, lse, d_out,
                                        causal=causal, window=window)
@@ -693,4 +717,5 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_train(q, k, v, *, causal=True, window=None):
     """Differentiable ``flash_attention`` (same layouts): one forward
     launch, and one backward launch when the graph is differentiated."""
+    _local_only("flash_attention", q, k, v)
     return _FlashAttention.apply(q, k, v, causal, window)

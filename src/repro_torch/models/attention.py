@@ -151,14 +151,48 @@ def decode_attention(q, k_cache, v_cache, pos_kv, cur_pos, *,
     scale = 1.0 / (hd ** 0.5)
     qg = q.reshape(B, Hkv, G, hd).float() * scale
     s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    bias = _decode_bias(pos_kv, cur_pos, window)[:, None, None, :]
+    p = torch.softmax(s + bias, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, Hq, hd).to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, pos_kv, cur_pos, *,
+                             window: Optional[int] = None):
+    """:func:`decode_attention` over one slice of the ring, unnormalised:
+    f32 m (B, Hq) (the largest masked score), l (B, Hq) (the sum of
+    e^{s - m}) and acc (B, Hq, hd) (the sum of e^{s - m} v), which
+    :func:`merge_partials` merges across slices (split-KV)."""
+    B, Hq, hd = q.shape
+    Hkv = k_cache.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / (hd ** 0.5)
+    qg = q.reshape(B, Hkv, G, hd).float() * scale
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    s = s + _decode_bias(pos_kv, cur_pos, window)[:, None, None, :]
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return (m.reshape(B, Hq), p.sum(-1).reshape(B, Hq),
+            acc.reshape(B, Hq, hd))
+
+
+def merge_partials(m, l, acc):
+    """Split-KV merge of partials over n slices: m, l (..., n) and acc
+    (..., n, d) -> sum_s e^{m_s - m*} acc_s / sum_s e^{m_s - m*} l_s,
+    m* = max_s m_s.  f32 (..., d)."""
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    return (w[..., None] * acc).sum(-2) / (w * l).sum(-1)[..., None]
+
+
+def _decode_bias(pos_kv, cur_pos, window):
+    """(B, S) additive f32 bias of a decode query at ``cur_pos`` over ring
+    slots at ``pos_kv`` (-1 = empty), within ``window``."""
     cur = cur_pos[:, None]
     ok = (pos_kv >= 0) & (pos_kv <= cur)
     if window is not None:
         ok = ok & (pos_kv > cur - window)
-    bias = torch.where(ok, 0.0, NEG_INF)[:, None, None, :]
-    p = torch.softmax(s + bias, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return out.reshape(B, Hq, hd).to(q.dtype)
+    return torch.where(ok, 0.0, NEG_INF)
 
 
 # -- MLA (DeepSeek-V2) -------------------------------------------------------
@@ -205,12 +239,26 @@ def mla_decode_attention(q_nope, q_rope, c_cache, kr_cache, p, pos_kv,
     s = torch.einsum("bhr,bsr->bhs", q_lat, c)
     s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
     s = s * scale
-    cur = cur_pos[:, None]
-    ok = (pos_kv >= 0) & (pos_kv <= cur)
-    if window is not None:
-        ok = ok & (pos_kv > cur - window)
-    s = s + torch.where(ok, 0.0, NEG_INF)[:, None, :]
+    s = s + _decode_bias(pos_kv, cur_pos, window)[:, None, :]
     pr = torch.softmax(s, dim=-1)
     ctx_lat = torch.einsum("bhs,bsr->bhr", pr, c)
     out = torch.einsum("bhr,rhd->bhd", ctx_lat, p["w_uv"].float())
     return out.to(q_nope.dtype)
+
+
+def mla_decode_partial(q_nope, q_rope, c_cache, kr_cache, w_uk, pos_kv,
+                       cur_pos, *, window=None):
+    """:func:`mla_decode_attention` over one slice of the latent ring,
+    unnormalised, in the latent space: f32 m, l (B, H) and acc (B, H, r)
+    for :func:`merge_partials`; the merged context times ``w_uv`` is the
+    output."""
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    c = c_cache.float()
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), w_uk.float())
+    s = torch.einsum("bhr,bsr->bhs", q_lat, c)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(), kr_cache.float())
+    s = s * scale + _decode_bias(pos_kv, cur_pos, window)[:, None, :]
+    m = s.amax(-1)
+    pr = torch.exp(s - m[..., None])
+    return m, pr.sum(-1), torch.einsum("bhs,bsr->bhr", pr, c)

@@ -48,6 +48,14 @@ def _expert_gemm(x, w, kernel_backend):
     return torch.einsum("ecd,edf->ecf", x, w)
 
 
+def moe_capacity(cfg, T: int, capacity_factor: float = 1.25,
+                 capacity_override: int = 0) -> int:
+    """Slots an expert takes for T tokens: ``capacity_override``, else the
+    reference's own expression (another float order can be off by one)."""
+    return capacity_override or max(
+        1, int(T * cfg.moe_top_k / cfg.num_experts * capacity_factor))
+
+
 def moe_ffn(x: torch.Tensor, p, cfg, *, capacity_factor: float = 1.25,
             capacity_override: int = 0,
             kernel_backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,11 +66,27 @@ def moe_ffn(x: torch.Tensor, p, cfg, *, capacity_factor: float = 1.25,
     Returns (y (T, d), Switch-style aux loss, f32 scalar)."""
     T, d = x.shape
     E = cfg.num_experts
-    K = cfg.moe_top_k
-    # the reference's own expression: another float order can be off by one
-    capacity = capacity_override or max(1, int(T * K / E * capacity_factor))
-
+    capacity = moe_capacity(cfg, T, capacity_factor, capacity_override)
     probs = torch.softmax(_router(x, p["router"]), dim=-1)  # (T, E) f32
+    y, ce = moe_routed(x, probs, p["experts"], cfg, capacity, kernel_backend)
+    # load-balance auxiliary loss (Switch-style)
+    me = probs.mean(dim=0)
+    aux = E * torch.sum(me * ce)
+    if "shared" in p:
+        y = y + mlp(x, p["shared"], cfg.mlp_gated)
+    return y, aux
+
+
+def moe_routed(x, probs, ep, cfg, capacity: int, kernel_backend: str,
+               slots=None):
+    """The routed experts of x (T, d) under the router's probabilities
+    (T, E): (their combined output (T, d), each expert's share of the T*K
+    assignments (E,) f32).  ``slots=(lo, hi)`` computes only that range of
+    every expert's ``capacity`` slots (one data rank's part of a sharded
+    call), the others adding nothing."""
+    T, d = x.shape
+    E = cfg.num_experts
+    K = cfg.moe_top_k
     # ties in the top-k may order differently from jax.lax.top_k; random f32
     # router logits do not tie at the sizes this runs at
     top_p, top_e = torch.topk(probs, K, dim=-1)  # (T, K)
@@ -76,20 +100,22 @@ def moe_ffn(x: torch.Tensor, p, cfg, *, capacity_factor: float = 1.25,
     pos_in_e = torch.cumsum(onehot, dim=0) - onehot
     flat_pos = torch.gather(pos_in_e, 1, flat_e[:, None])[:, 0]
     keep = flat_pos < capacity  # assignments past capacity are dropped
-
-    # load-balance auxiliary loss (Switch-style)
-    me = probs.mean(dim=0)
     ce = onehot.sum(dim=0).float() / (T * K)
-    aux = E * torch.sum(me * ce)
+    lo, hi = slots or (0, capacity)
+    n = hi - lo
+    if n <= 0:
+        return x.new_zeros((T, d)), ce
+    if slots is not None:
+        keep = keep & (flat_pos >= lo) & (flat_pos < hi)
+        flat_pos = flat_pos - lo
 
-    # scatter tokens into (E, C + 1, d); dropped ones land in spill row C
+    # scatter tokens into (E, n + 1, d); dropped ones land in spill row n
     tok_idx = torch.arange(T * K, device=x.device) // K  # (t, k) -> t
-    dest = flat_e * (capacity + 1) + torch.where(keep, flat_pos, capacity)
-    xe = x.new_zeros((E * (capacity + 1), d))
+    dest = flat_e * (n + 1) + torch.where(keep, flat_pos, n)
+    xe = x.new_zeros((E * (n + 1), d))
     xe[dest] = x[tok_idx]
-    xe = xe.view(E, capacity + 1, d)[:, :capacity]
+    xe = xe.view(E, n + 1, d)[:, :n]
 
-    ep = p["experts"]
     if cfg.mlp_gated:
         g = F.silu(_expert_gemm(xe, ep["wg"], kernel_backend))
         h = _expert_gemm(xe, ep["w1"], kernel_backend)
@@ -100,11 +126,7 @@ def moe_ffn(x: torch.Tensor, p, cfg, *, capacity_factor: float = 1.25,
         ye = _expert_gemm(h, ep["w2"], kernel_backend)
 
     # gather back and combine with the routing weights (in x.dtype)
-    src = flat_e * capacity + flat_pos.clamp_max(capacity - 1)
-    y_tok = ye.reshape(E * capacity, d)[src] * keep[:, None].to(x.dtype)
+    src = flat_e * n + flat_pos.clamp(0, n - 1)
+    y_tok = ye.reshape(E * n, d)[src] * keep[:, None].to(x.dtype)
     w = top_p.reshape(-1, 1).to(x.dtype)
-    y = (y_tok * w).view(T, K, d).sum(dim=1)
-
-    if "shared" in p:
-        y = y + mlp(x, p["shared"], cfg.mlp_gated)
-    return y, aux
+    return (y_tok * w).view(T, K, d).sum(dim=1), ce

@@ -27,11 +27,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models.params import P
+from repro_torch.models.sharding import (constrain_rows, heads_spec,
+                                         is_dtensor, local_call, local_rows,
+                                         merge_heads, split_heads)
 
 
 def store_rows(buf: torch.Tensor, new: torch.Tensor, active) -> None:
     """Write ``new`` into the state view ``buf`` in place; with an
-    ``active`` (B,) mask, only the active rows change."""
+    ``active`` (B,) mask, only the active rows change.  A sharded state
+    (a DTensor, sharded on batch only) is written by each rank into its
+    own rows."""
+    if is_dtensor(buf):
+        with torch.no_grad():  # a state is never differentiated
+            store_rows(buf.to_local(), local_rows(new, buf),
+                       None if active is None else local_rows(active, buf))
+        return
     new = new.to(buf.dtype)
     if active is not None:
         m = active.reshape((-1,) + (1,) * (new.ndim - 1))
@@ -135,24 +146,28 @@ def rwkv6_block(x, p, cfg, st, ctx):
     w_log = -torch.exp(torch.clamp((p["w0"] + w_dd).float(), -8.0, 1.0))
 
     def hsplit(t):  # (B, S, d) -> (B, H, S, D), a strided view
-        return t.reshape(B, S, H, D).transpose(1, 2)
+        return split_heads(t, H, D, ctx).transpose(1, 2)
 
     r_, k_, v_, wl_ = hsplit(r), hsplit(k), hsplit(v), hsplit(w_log)
-    if train:
-        o, _ = rwkv6_scan_chunked(
-            r_, k_, v_, wl_, p["u"],
-            torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device),
-            chunk=ctx["ssm_chunk"])
-    elif ctx["kernel_backend"] == "cuda":
-        o, new_state = kops.rwkv6_scan(r_, k_, v_, wl_, p["u"][:, None],
-                                       state0=st["wkv"])
-    elif S == 1:
-        o, new_state = rwkv6_step(r_[:, :, 0], k_[:, :, 0], v_[:, :, 0],
-                                  wl_[:, :, 0], p["u"], st["wkv"])
-        o = o[:, :, None]
-    else:
-        o, new_state = rwkv6_scan_chunked(r_, k_, v_, wl_, p["u"], st["wkv"],
-                                          chunk=ctx["ssm_chunk"])
+    chunk = ctx["ssm_chunk"]
+    cuda = ctx["kernel_backend"] == "cuda"
+
+    def wkv(r_, k_, v_, wl_, u, s0):  # one rank's rows and heads
+        if s0 is None:
+            s0 = torch.zeros(r_.shape[:2] + (D, D), dtype=torch.float32,
+                             device=r_.device)
+        if train or (not cuda and S > 1):
+            return rwkv6_scan_chunked(r_, k_, v_, wl_, u, s0, chunk=chunk)
+        if cuda:
+            return kops.rwkv6_scan(r_, k_, v_, wl_, u[:, None], state0=s0)
+        o_, s_ = rwkv6_step(r_[:, :, 0], k_[:, :, 0], v_[:, :, 0],
+                            wl_[:, :, 0], u, s0)
+        return o_[:, :, None], s_
+
+    hs = heads_spec(ctx, H, dim=1)  # (B, H, ...): rows and heads
+    o, new_state = local_call(
+        ctx, wkv, (r_, k_, v_, wl_, p["u"], None if train else st["wkv"]),
+        (hs, hs, hs, hs, P(hs[1], None), hs), (hs, hs))
     if not train:
         active = ctx.get("active")
         store_rows(st["wkv"], new_state, active)
@@ -161,7 +176,7 @@ def rwkv6_block(x, p, cfg, st, ctx):
     o32 = o.transpose(1, 2).float()  # (B, S, H, D)
     o32 = (o32 - o32.mean(-1, keepdim=True)) * torch.rsqrt(
         o32.var(-1, unbiased=False, keepdim=True) + 1e-5)
-    o = (o32.reshape(B, S, d) * p["ln_w"].float()
+    o = (merge_heads(o32, ctx) * p["ln_w"].float()
          + p["ln_b"].float()).to(x.dtype)
     return (o * g) @ p["wo"]
 
@@ -228,7 +243,9 @@ def rglru_block(x, p, cfg, st, ctx):
     conv = sum(hist[:, i:i + S, :] * p["conv_w"][cw - 1 - i]
                for i in range(cw))
     conv = conv + p["conv_b"]
-    # gates
+    # gates (sharded: conv whole over its channels before the products
+    # that shard theirs)
+    conv = constrain_rows(conv, ctx)
     r_gate = torch.sigmoid(conv @ p["w_a"] + p["b_a"])
     i_gate = torch.sigmoid(conv @ p["w_i"] + p["b_i"])
     a_log = -8.0 * F.softplus(p["lam"].float()) * r_gate.float()  # < 0

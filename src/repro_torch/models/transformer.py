@@ -49,22 +49,66 @@ functions under either backend, in serving and in training.  Neither has
 the encoder's self-attention nor the decoder's cross attention: both run
 ``models.attention.full_attention`` under either backend, as the
 reference's reach no Pallas kernel.
+
+``forward``, ``prefill`` and ``extend`` take the reference's
+``batch_axes`` (the mesh axes the batch is sharded over) and ``tp_axis``
+(the tensor-parallel axis) for a sharded program on a ``DeviceMesh``: the
+parameters are DTensors (``params.param_shardings``), and a sharded cache
+comes from ``init_cache(..., mesh=)`` (``params.cache_pspecs``).  The
+ops between the layouts below run on DTensor, which propagates their
+sharding as GSPMD does in the reference:
+
+* The reference's constraints become redistributions to its specs
+  (``_constrain``, ``_constrain_heads``, ``_expand_kv``,
+  ``_constrain_cache_seq``), each the identity on a plain tensor and when
+  its axes are ``None``, so the unsharded path does not change.  They
+  constrain the gradient too (``sharding.redistribute_to``), as
+  ``with_sharding_constraint`` constrains the cotangent.
+* Each layer's weights are gathered over the data axes for its forward
+  (FSDP, ``sharding.unshard``), their model-axis sharding kept.
+* Attention, plain or through the kernels, and the WKV scan run on each
+  rank's own rows and, under ``tp_axis``, heads (``sharding.local_call``,
+  ``local_map``); a decode step under ``tp_axis`` is split-KV over the
+  sequence-sharded ring, each model rank's partial softmax merged.
+* A sharded call runs under ``implicit_replication()``: the tensors the
+  model makes itself (positions, RoPE tables, masks, zero states, the
+  MoE's dispatch indices) are the same on every rank, so they enter as
+  replicated rather than each being built on the mesh.
+
+Under ``tp_axis`` attention takes the plain path whatever
+``kernel_backend`` says (the reference's Pallas kernels are
+single-device); under ``batch_axes`` alone the attention kernels run on
+each rank's rows, and the expert products and the scans take the plain
+path.  A sharded call whose parameters are not DTensors raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import kvcache
 from repro_torch.models.attention import (chunked_attention, decode_attention,
-                                          full_attention,
+                                          decode_attention_partial,
+                                          full_attention, merge_partials,
                                           mla_decode_attention,
+                                          mla_decode_partial,
                                           mla_prefill_attention)
 from repro_torch.models.layers import (apply_rope, embed_tokens, lm_logits,
                                        mlp, rms_norm)
-from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import to_module
+from repro_torch.models.moe import moe_capacity, moe_ffn, moe_routed
+from repro_torch.models.params import (P, batch_pspec, cache_pspecs,
+                                       param_placements, to_module)
+from repro_torch.models.sharding import (axis_index, axis_size,
+                                         constrain_rows, heads_spec,
+                                         is_dtensor, local_call, local_rows,
+                                         merge_heads, mesh_axes,
+                                         redistribute_to, replicated,
+                                         rows_spec, sharded_mesh,
+                                         split_heads, unshard)
 from repro_torch.models.ssm import (rglru_block, rwkv6_block,
                                     rwkv6_channel_mix)
 
@@ -271,14 +315,18 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     ``state_dict`` keys are the reference's tree paths.
 
     ``device=None`` means ``"cuda"`` and raises when no GPU is visible, as
-    the engine does: the CPU is used only when asked for."""
+    the engine does: the CPU is used only when asked for.  On
+    ``device="meta"`` the leaves have shapes and dtypes only (the dry
+    run's parameters)."""
     check_supported(cfg)
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("init_params draws on CUDA by default and no GPU "
                            "is visible; pass device='cpu' to use the CPU")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen = None  # meta tensors have shapes only: nothing is drawn
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     head, pattern, repeats, tail = layout(cfg)
     d = cfg.d_model
     tree = {"embed": {"w": _normal(gen, (cfg.vocab_size, d), 0.02, dtype,
@@ -310,14 +358,111 @@ def init_params(cfg, seed: int = 0, dtype=torch.bfloat16, device=None):
     return to_module(tree)
 
 
+# ============================ sharding ======================================
+def _shard_kw(ctx, mesh, batch_axes, tp_axis, kernel_backend):
+    """The sharding keys of ``ctx``: the mesh and axes, and which path
+    attention takes (``attn_backend``).  Unsharded, attention follows
+    ``kernel_backend``.  Sharded: attention kernels only under
+    ``batch_axes`` alone, and the other kernels' paths plain."""
+    ctx.update(mesh=mesh, batch_axes=batch_axes, tp_axis=tp_axis,
+               attn_backend=kernel_backend)
+    if mesh is not None:
+        ctx["kernel_backend"] = "plain"
+        if tp_axis:
+            ctx["attn_backend"] = "plain"
+    return ctx
+
+
+def _constrain(x, ctx):
+    """Pin the residual stream's batch dim to the data axes (DTensor, as
+    GSPMD, can otherwise drop batch sharding and replicate activations);
+    the logits too, whole over the vocabulary, for the loss and the
+    argmax."""
+    ax = ctx.get("batch_axes")
+    if not ax:
+        return x
+    return redistribute_to(x, P(ax, *([None] * (x.ndim - 1))))
+
+
+def _constrain_heads(t, ctx):
+    """Shard (B, S, H, hd) attention tensors: batch over data axes, heads
+    over the model axis.  Keeps the score contraction (over hd) local."""
+    tp = ctx.get("tp_axis")
+    if not tp:
+        return t
+    return redistribute_to(t, P(ctx.get("batch_axes"), None, tp, None))
+
+
+def _expand_kv(k, G):
+    """GQA -> MHA expansion (``jnp.repeat`` over the head axis) so the head
+    axis is cleanly shardable on the plain path (the kernels do grouped
+    GQA natively instead)."""
+    if G == 1:
+        return k
+    B, S, H, hd = k.shape
+    return k[:, :, :, None, :].expand(B, S, H, G, hd).reshape(B, S, H * G,
+                                                              hd)
+
+
+def _constrain_cache_seq(t, ctx, seq_axis=1):
+    """Sequence-shard a decode cache read over the model axis (split-KV):
+    each model rank scores its S/TP slice for all heads instead of
+    gathering the whole cache per layer per step."""
+    tp = ctx.get("tp_axis")
+    if not tp:
+        return t
+    spec = [None] * t.ndim
+    spec[0] = ctx.get("batch_axes")
+    spec[seq_axis] = tp
+    return redistribute_to(t, P(*spec))
+
+
+def _embed(tokens, w, ctx):
+    """The token embeddings; sharded, through ``F.embedding`` on the
+    tokens' rows, whose DTensor rule (a vocabulary-sharded table's masked
+    partial lookup, and its backward) every release has, where an indexed
+    gather's backward (an indexed write) has none in some."""
+    if ctx.get("mesh") is None:
+        return embed_tokens(tokens, w)
+    if not is_dtensor(tokens):  # the same batch on every rank: its rows
+        from torch.distributed.tensor import distribute_tensor
+        tokens = distribute_tensor(
+            tokens, ctx["mesh"], param_placements(rows_spec(ctx, 2),
+                                                  ctx["mesh"]),
+            src_data_rank=None)
+    return constrain_rows(torch.nn.functional.embedding(tokens.long(), w),
+                          ctx)
+
+
+def _top(params, ctx):
+    """The embedding, final norm and LM head, unsharded for the call."""
+    return unshard({k: params[k] for k in ("embed", "final_norm", "lm_head",
+                                            "frontend_proj")
+                     if k in params}, ctx)
+
+
+_DOTS = None
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.checkpoint_dots``: keep the matmul
+    outputs, recompute the rest."""
+    global _DOTS
+    if _DOTS is None:
+        aten = torch.ops.aten
+        _DOTS = {aten.mm.default, aten.bmm.default, aten.addmm.default}
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        CheckpointPolicy.PREFER_RECOMPUTE
+
+
 # ============================ block application =============================
-def _mla_project(cfg, ap, x, pos):
+def _mla_project(cfg, ap, x, pos, ctx):
     """MLA's projections of (B, S, d) at positions ``pos``: q split into
     its no-RoPE and RoPE parts (B, S, H, dn), (B, S, H, dr), the normed
     latent (B, S, r) and the shared RoPE key (B, S, 1, dr)."""
     B, S, _ = x.shape
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = (x @ ap["w_q"]).reshape(B, S, cfg.num_heads, dn + dr)
+    q = split_heads(x @ ap["w_q"], cfg.num_heads, dn + dr, ctx)
     q_rope = apply_rope(q[..., dn:], pos, cfg.rope_theta)
     c_kv = rms_norm(x @ ap["w_dkv"], ap["kv_norm"], cfg.norm_eps)
     k_rope = apply_rope((x @ ap["w_krope"])[:, :, None, :], pos,
@@ -341,37 +486,40 @@ def _attn_mix_extend(cfg, ap, x, st, ctx):
     bidx = torch.arange(B, device=x.device)[:, None]
 
     def write(buf, val):
-        val = val[:, C - n:].to(buf.dtype)
-        if active is not None:
-            keep = buf[bidx, slots]
-            m = active.reshape((B, 1) + (1,) * (val.ndim - 2))
-            val = torch.where(m, val, keep)
-        buf[bidx, slots] = val
+        val = val[:, C - n:]
+        idx, sl, act = bidx, slots, active
+        if is_dtensor(buf):  # a sharded ring: each rank writes its rows
+            with torch.no_grad():  # a cache is never differentiated
+                val, sl = local_rows(val, buf), local_rows(slots, buf)
+                act = None if active is None else local_rows(active, buf)
+                buf = buf.to_local()
+                idx = torch.arange(buf.shape[0], device=buf.device)[:, None]
+                _write_rows(buf, idx, sl, val, act)
+            return
+        _write_rows(buf, idx, sl, val, act)
 
     if cfg.use_mla:
-        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, x, pos)
+        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, x, pos, ctx)
         write(st["c"], c_kv)
         write(st["kr"], k_rope[:, :, 0])
         write(st["slot_pos"], pos)
         if C == 1:
-            out = mla_decode_attention(q_nope[:, 0], q_rope[:, 0], st["c"],
-                                       st["kr"], ap, st["slot_pos"],
-                                       pos[:, 0], window=window)[:, None]
+            out = _mla_decode(cfg, ctx, ap, q_nope[:, 0], q_rope[:, 0], st,
+                              pos[:, 0], window)[:, None]
         else:
-            out = mla_prefill_attention(
-                q_nope, q_rope, st["c"], st["kr"][:, :, None], ap, pos_q=pos,
-                pos_kv=st["slot_pos"], window=window, q_chunk=ctx["q_chunk"],
-                kv_chunk=ctx["kv_chunk"])
-        return out.reshape(B, C, -1) @ ap["wo"]
+            out = _mla_prefill(cfg, ctx, ap, q_nope, q_rope, st["c"],
+                               st["kr"][:, :, None], pos, st["slot_pos"],
+                               window)
+        return merge_heads(out, ctx) @ ap["wo"]
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ ap["wq"]
     k = x @ ap["wk"]
     v = x @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    q = apply_rope(q.reshape(B, C, Hq, hd), pos, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, C, Hkv, hd), pos, cfg.rope_theta)
-    v = v.reshape(B, C, Hkv, hd)
+    q = apply_rope(split_heads(q, Hq, hd, ctx), pos, cfg.rope_theta)
+    k = apply_rope(split_heads(k, Hkv, hd, ctx), pos, cfg.rope_theta)
+    v = split_heads(v, Hkv, hd, ctx)
     quant = "k_scale" in st
     if quant:
         qk, ks = kvcache.quantize_kv(k)
@@ -384,38 +532,166 @@ def _attn_mix_extend(cfg, ap, x, st, ctx):
         write(st["k"], k)
         write(st["v"], v)
     write(st["slot_pos"], pos)
-    cuda = ctx["kernel_backend"] == "cuda"
-    if C == 1:
-        if cuda:
-            out = kops.decode_attention(
-                q[:, 0], st["k"], st["v"], st["slot_pos"], pos[:, 0],
-                window=window, k_scale=st.get("k_scale"),
-                v_scale=st.get("v_scale"))[:, None]
+    R = functools.partial(rows_spec, ctx)
+    if ctx["attn_backend"] == "cuda":  # the kernels, on each rank's rows
+        if C == 1:
+            out = local_call(
+                ctx, lambda q_, k_, v_, sp, cur, ks, vs: kops.decode_attention(
+                    q_, k_, v_, sp, cur, window=window, k_scale=ks,
+                    v_scale=vs),
+                (q[:, 0], st["k"], st["v"], st["slot_pos"], pos[:, 0],
+                 st.get("k_scale"), st.get("v_scale")),
+                (R(3), R(4), R(4), R(2), R(1), R(3), R(3)), R(3))[:, None]
         else:
-            k_r, v_r = st["k"], st["v"]
-            if quant:
-                k_r = kvcache.dequantize_kv(k_r, st["k_scale"], k.dtype)
-                v_r = kvcache.dequantize_kv(v_r, st["v_scale"], v.dtype)
-            out = decode_attention(q[:, 0], k_r, v_r, st["slot_pos"],
-                                   pos[:, 0], window=window)[:, None]
-    elif cuda:
-        # (B, C, H, hd) -> (B, H, C, hd) are free strided views here
-        out = kops.flash_attention_pool(
-            q.transpose(1, 2), st["k"].transpose(1, 2),
-            st["v"].transpose(1, 2), pos, st["slot_pos"], window=window,
-            k_scale=st["k_scale"].transpose(1, 2) if quant else None,
-            v_scale=st["v_scale"].transpose(1, 2) if quant else None)
-        out = out.transpose(1, 2)
+            # (B, C, H, hd) -> (B, H, C, hd) are free strided views here
+            out = local_call(
+                ctx, lambda q_, k_, v_, pq, pk, ks, vs:
+                    kops.flash_attention_pool(q_, k_, v_, pq, pk,
+                                              window=window, k_scale=ks,
+                                              v_scale=vs),
+                (q.transpose(1, 2), st["k"].transpose(1, 2),
+                 st["v"].transpose(1, 2), pos, st["slot_pos"],
+                 st["k_scale"].transpose(1, 2) if quant else None,
+                 st["v_scale"].transpose(1, 2) if quant else None),
+                (R(4), R(4), R(4), R(2), R(2), R(3), R(3)),
+                R(4)).transpose(1, 2)
+        return merge_heads(out, ctx) @ ap["wo"]
+    kk, vv = st["k"], st["v"]
+    if quant:
+        kk = kvcache.dequantize_kv(kk, st["k_scale"], k.dtype)
+        vv = kvcache.dequantize_kv(vv, st["v_scale"], v.dtype)
+    if C == 1:
+        out = _decode_plain(ctx, q[:, 0], kk, vv, st["slot_pos"], pos[:, 0],
+                            window)[:, None]
     else:
-        kk, vv = st["k"], st["v"]
-        if quant:
-            kk = kvcache.dequantize_kv(kk, st["k_scale"], k.dtype)
-            vv = kvcache.dequantize_kv(vv, st["v_scale"], v.dtype)
-        out = chunked_attention(q, kk, vv, causal=True, window=window,
-                                pos_q=pos, pos_kv=st["slot_pos"],
-                                q_chunk=ctx["q_chunk"],
-                                kv_chunk=ctx["kv_chunk"])
-    return out.reshape(B, C, Hq * hd) @ ap["wo"]
+        out = _attend_plain(ctx, q, kk, vv, pos, st["slot_pos"], window)
+    return merge_heads(out, ctx) @ ap["wo"]
+
+
+def _attend_plain(ctx, q, k, v, pos_q, pos_kv, window):
+    """``chunked_attention`` (causal, windowed) of q (B, S, Hq, hd) over
+    K/V (B, Skv, Hkv, hd) at positions ``pos_q`` / ``pos_kv``; sharded,
+    on each rank's rows and, under ``tp_axis``, its heads: K/V expanded to
+    Hq heads (``_expand_kv``) and each model rank attending with its slice
+    of them, the output laid out as ``_constrain_heads`` lays it.  Where
+    the model axis does not divide Hq (40 heads over 16), the heads are
+    padded with zeros to a multiple of it, as GSPMD pads an uneven dim, and
+    the pad is gathered and sliced off after."""
+    Hq, Hkv = q.shape[2], k.shape[2]
+    R2, R4 = rows_spec(ctx, 2), rows_spec(ctx, 4)
+
+    def attend(q_, k_, v_, pq, pk):
+        return chunked_attention(q_, k_, v_, causal=True, window=window,
+                                 pos_q=pq, pos_kv=pk, q_chunk=ctx["q_chunk"],
+                                 kv_chunk=ctx["kv_chunk"])
+    tp = ctx.get("tp_axis")
+    if not tp:
+        return local_call(ctx, attend, (q, k, v, pos_q, pos_kv),
+                          (R4, R4, R4, R2, R2), R4)
+    r, n = axis_index(ctx, tp)
+    h = -(-Hq // n)  # heads a model rank, the last ranks' padded
+
+    def part(q_, k_, v_, pq, pk):
+        k_, v_ = _expand_kv(k_, Hq // Hkv), _expand_kv(v_, Hq // Hkv)
+        if h * n > Hq:
+            q_, k_, v_ = (torch.nn.functional.pad(t, (0, 0, 0, h * n - Hq))
+                          for t in (q_, k_, v_))
+        sl = slice(r * h, (r + 1) * h)
+        return attend(q_[:, :, sl], k_[:, :, sl], v_[:, :, sl], pq, pk)
+    # whole heads in, each rank's gradient a part: a partial sum over tp
+    out = local_call(ctx, part, (q, k, v, pos_q, pos_kv),
+                     (R4, R4, R4, R2, R2),
+                     P(ctx.get("batch_axes"), None, tp, None),
+                     grad_partial=((tp,), (tp,), (tp,), (), ()))
+    if h * n == Hq:
+        return _constrain_heads(out, ctx)
+    return _constrain(out, ctx)[:, :, :Hq]
+
+
+def _decode_plain(ctx, q, k, v, pos_kv, cur, window):
+    """``decode_attention`` of q (B, Hq, hd) over the ring; sharded, on
+    each rank's rows, and under ``tp_axis`` split-KV: the ring
+    sequence-sharded over the model axis (``_constrain_cache_seq``), each
+    model rank's partial softmax merged across the axis."""
+    R = functools.partial(rows_spec, ctx)
+    if not ctx.get("tp_axis"):
+        return local_call(
+            ctx, lambda q_, k_, v_, sp, c: decode_attention(
+                q_, k_, v_, sp, c, window=window),
+            (q, k, v, pos_kv, cur), (R(3), R(4), R(4), R(2), R(1)), R(3))
+    k, v, pos_kv = (_constrain_cache_seq(t, ctx) for t in (k, v, pos_kv))
+    tp = ctx["tp_axis"]
+    S4, S2 = P(ctx.get("batch_axes"), tp, None, None), \
+        P(ctx.get("batch_axes"), tp)
+    split = P(ctx.get("batch_axes"), None, tp)
+
+    def part(q_, k_, v_, sp, c):
+        m, l, acc = decode_attention_partial(q_, k_, v_, sp, c,
+                                             window=window)
+        return m[..., None], l[..., None], acc[:, :, None]
+    m, l, acc = local_call(ctx, part, (q, k, v, pos_kv, cur),
+                            (R(3), S4, S4, S2, R(1)),
+                            (split, split, P(*split, None)))
+    return merge_partials(m, l, acc).to(q.dtype)
+
+
+def _mla_prefill(cfg, ctx, ap, q_nope, q_rope, c, kr, pos_q, pos_kv, window):
+    """``mla_prefill_attention``; sharded, on each rank's rows and, under
+    ``tp_axis``, its heads (``w_uk`` / ``w_uv`` by heads, the latent
+    whole)."""
+    H = heads_spec(ctx, cfg.num_heads)
+    W = P(None, H[2], None)
+    return local_call(
+        ctx, lambda qn, qr, c_, kr_, wk, wv, pq, pk: mla_prefill_attention(
+            qn, qr, c_, kr_, {"w_uk": wk, "w_uv": wv}, pos_q=pq, pos_kv=pk,
+            window=window, q_chunk=ctx["q_chunk"],
+            kv_chunk=ctx["kv_chunk"]),
+        (q_nope, q_rope, c, kr, ap["w_uk"], ap["w_uv"], pos_q, pos_kv),
+        (H, H, rows_spec(ctx, 3), rows_spec(ctx, 4), W, W, rows_spec(ctx, 2),
+         rows_spec(ctx, 2)), H)
+
+
+def _mla_decode(cfg, ctx, ap, q_nope, q_rope, st, cur, window):
+    """``mla_decode_attention`` (absorbed); sharded, on each rank's rows,
+    and under ``tp_axis`` split-KV over the sequence-sharded latent ring,
+    as the reference's ``_constrain_cache_seq`` lays it out."""
+    R = functools.partial(rows_spec, ctx)
+    if not ctx.get("tp_axis"):
+        return local_call(
+            ctx, lambda qn, qr, c_, kr_, wk, wv, sp, c: mla_decode_attention(
+                qn, qr, c_, kr_, {"w_uk": wk, "w_uv": wv}, sp, c,
+                window=window),
+            (q_nope, q_rope, st["c"], st["kr"], ap["w_uk"], ap["w_uv"],
+             st["slot_pos"], cur),
+            (R(3), R(3), R(3), R(3), P(None, None, None),
+             P(None, None, None), R(2), R(1)), R(3))
+    c, kr, sp = (_constrain_cache_seq(st[n], ctx)
+                 for n in ("c", "kr", "slot_pos"))
+    tp = ctx["tp_axis"]
+    b = ctx.get("batch_axes")
+    split = P(b, None, tp)
+
+    def part(qn, qr, c_, kr_, wk, sp_, cur_):
+        m, l, acc = mla_decode_partial(qn, qr, c_, kr_, wk, sp_, cur_,
+                                       window=window)
+        return m[..., None], l[..., None], acc[:, :, None]
+    m, l, acc = local_call(
+        ctx, part, (q_nope, q_rope, c, kr, ap["w_uk"], sp, cur),
+        (R(3), R(3), P(b, tp, None), P(b, tp, None), P(None, None, None),
+         P(b, tp), R(1)), (split, split, P(*split, None)))
+    ctx_lat = merge_partials(m, l, acc)
+    return torch.einsum("bhr,rhd->bhd", ctx_lat,
+                        ap["w_uv"].float()).to(q_nope.dtype)
+
+
+def _write_rows(buf, idx, slots, val, active):
+    """``buf[idx, slots] = val`` in place, only into ``active`` rows."""
+    val = val.to(buf.dtype)
+    if active is not None:
+        keep = buf[idx, slots]
+        m = active.reshape((-1, 1) + (1,) * (val.ndim - 2))
+        val = torch.where(m, val, keep)
+    buf[idx, slots] = val
 
 
 def _cross_attn(cfg, ap, x, st, ctx):
@@ -426,15 +702,23 @@ def _cross_attn(cfg, ap, x, st, ctx):
     under either kernel backend."""
     B, C, _ = x.shape
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ ap["xq"]).reshape(B, C, Hq, hd)
+    q = split_heads(x @ ap["xq"], Hq, hd, ctx)
     if st is not None and "xk" in st:
         xk, xv = st["xk"], st["xv"]
     else:
         enc = ctx["enc_out"]
-        xk = (enc @ ap["xk"]).reshape(B, enc.shape[1], Hkv, hd)
-        xv = (enc @ ap["xv"]).reshape(B, enc.shape[1], Hkv, hd)
-    out = full_attention(q, xk, xv, causal=False)
-    return out.reshape(B, C, Hq * hd) @ ap["xo"]
+        xk = split_heads(enc @ ap["xk"], Hkv, hd, ctx)
+        xv = split_heads(enc @ ap["xv"], Hkv, hd, ctx)
+    return merge_heads(_full_attention(ctx, q, xk, xv), ctx) @ ap["xo"]
+
+
+def _full_attention(ctx, q, k, v):
+    """Non-causal ``full_attention``; sharded, on each rank's rows (heads
+    whole: the reference leaves the encoder and the cross attention
+    unconstrained)."""
+    R4 = rows_spec(ctx, 4)
+    return local_call(ctx, lambda q_, k_, v_: full_attention(
+        q_, k_, v_, causal=False), (q, k, v), (R4, R4, R4), R4)
 
 
 def _ffn_apply(cfg, lp, x, ctx):
@@ -446,10 +730,66 @@ def _ffn_apply(cfg, lp, x, ctx):
     if "moe" not in lp:
         return mlp(x, lp["ffn"], cfg.mlp_gated)
     B, C, d = x.shape
-    y, _ = moe_ffn(x.reshape(B * C, d), lp["moe"], cfg,
-                   capacity_override=B * C if C == 1 else 0,
-                   kernel_backend=ctx["kernel_backend"])
-    return y.reshape(B, C, d)
+    y, _ = _moe(cfg, lp["moe"], _tokens(x, ctx), ctx,
+                capacity_factor=ctx.get("capacity_factor", 1.25),
+                capacity_override=B * C if C == 1 else 0,
+                kernel_backend=ctx["kernel_backend"])
+    return _untokens(y, B, C, ctx)
+
+
+def _tokens(x, ctx):
+    """(B, S, d) -> (B * S, d), the tokens split over the data axes as
+    their rows are, on both sides of the view (and so its gradient's)."""
+    B, S, d = x.shape
+    return _constrain(_constrain(x, ctx).reshape(B * S, d), ctx)
+
+
+def _untokens(y, B, S, ctx):
+    """The inverse of :func:`_tokens`."""
+    return _constrain(_constrain(y, ctx).reshape(B, S, y.shape[-1]), ctx)
+
+
+def _moe(cfg, p, x, ctx, **kw):
+    """``moe_ffn`` of the tokens x (T, d).  Sharded: the router's
+    probabilities and the shared experts on DTensor, and the routing, the
+    dispatch, the expert products and the combine on each rank
+    (``local_call``) over the whole token set, as the reference routes the
+    global batch: each data rank runs its slice of every expert's capacity
+    slots, each model rank its slice of d_ff (where the axis divides it),
+    so a rank's output, and its gradients, are partial sums over both
+    (the dispatch's indexed writes run on plain tensors: DTensor has no
+    sharding rule for them in every release)."""
+    if ctx.get("mesh") is None:
+        return moe_ffn(x, p, cfg, **kw)
+    T = x.shape[0]
+    capacity = moe_capacity(cfg, T, kw["capacity_factor"],
+                            kw["capacity_override"])
+    probs = torch.softmax(x.float() @ p["router"].float(), dim=-1)
+    data = mesh_axes(ctx.get("batch_axes"))
+    i, n = axis_index(ctx, data)
+    per = -(-capacity // n)
+    lo = min(capacity, i * per)
+    slots = (lo, min(capacity, lo + per))
+    tp = ctx.get("tp_axis")
+    ftp = tp if tp and cfg.moe_d_ff % axis_size(ctx, tp) == 0 else None
+    ep = p["experts"]
+    names = [k for k in ("w1", "wg", "w2") if k in ep]
+    wspec = [P(None, ftp, None) if k == "w2" else P(None, None, ftp)
+             for k in names]
+    part_axes = data + ((ftp,) if ftp else ())
+
+    def routed(x_, probs_, *ws):
+        return moe_routed(x_, probs_, dict(zip(names, ws)), cfg, capacity,
+                          "plain", slots=slots)
+    y, ce = local_call(
+        ctx, routed, (x, probs, *(ep[k] for k in names)),
+        (P(None, None), P(None, None), *wspec), (P(None, None), P(None)),
+        grad_partial=(part_axes, part_axes) + (data,) * len(names),
+        out_partial=(part_axes, ()))
+    aux = cfg.num_experts * torch.sum(probs.mean(dim=0) * ce)
+    if "shared" in p:
+        y = y + mlp(x, p["shared"], cfg.mlp_gated)
+    return y, aux
 
 
 def _cross_step(cfg, lp, x, st, ctx):
@@ -464,6 +804,7 @@ def _cross_step(cfg, lp, x, st, ctx):
 def apply_block(cfg, kind, lp, x, st, ctx):
     """One residual block of ``kind`` over (B, C, d); ``st`` is updated in
     place."""
+    lp = unshard(lp, ctx)
     h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
     if kind == "rwkv6":
         x = x + rwkv6_block(h, lp["tm"], cfg, st, ctx)
@@ -502,10 +843,12 @@ def layer_views(cfg, params):
 
 
 def _run_trunk(cfg, layers, x, cache, ctx):
+    x = _constrain(x, ctx)
     for kind, (sec, key, r), lp in layers:
         st = cache[sec][key]
         x = apply_block(cfg, kind, lp, x, st if r is None else _at(st, r),
                         ctx)
+        x = _constrain(x, ctx)
     return x
 
 
@@ -536,32 +879,31 @@ def _attn_mix_train(cfg, ap, x, ctx):
     window = ctx.get("window") or cfg.sliding_window
     pos = ctx["positions"]  # (S,)
     if cfg.use_mla:
-        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, x, pos)
-        out = mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, ap,
-                                    pos_q=pos, pos_kv=pos, window=window,
-                                    q_chunk=ctx["q_chunk"],
-                                    kv_chunk=ctx["kv_chunk"])
-        return out.reshape(B, S, -1) @ ap["wo"]
+        q_nope, q_rope, c_kv, k_rope = _mla_project(cfg, ap, x, pos, ctx)
+        out = _mla_prefill(cfg, ctx, ap, q_nope, q_rope, c_kv, k_rope, pos,
+                           pos, window)
+        return merge_heads(out, ctx) @ ap["wo"]
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = x @ ap["wq"]
     k = x @ ap["wk"]
     v = x @ ap["wv"]
     if cfg.qkv_bias:
         q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-    q = apply_rope(q.reshape(B, S, Hq, hd), pos, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, Hkv, hd), pos, cfg.rope_theta)
-    v = v.reshape(B, S, Hkv, hd)
-    if ctx["kernel_backend"] == "cuda":
+    q = apply_rope(split_heads(q, Hq, hd, ctx), pos, cfg.rope_theta)
+    k = apply_rope(split_heads(k, Hkv, hd, ctx), pos, cfg.rope_theta)
+    v = split_heads(v, Hkv, hd, ctx)
+    if ctx["attn_backend"] == "cuda":
         # (B, S, H, hd) -> (B, H, S, hd) are free strided views here, and the
-        # output comes back in q's layout
-        out = kops.flash_attention_train(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window).transpose(1, 2)
+        # output comes back in q's layout; sharded, each rank's rows
+        R4 = rows_spec(ctx, 4)
+        out = local_call(
+            ctx, lambda q_, k_, v_: kops.flash_attention_train(
+                q_, k_, v_, causal=True, window=window),
+            (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            (R4, R4, R4), R4).transpose(1, 2)
     else:
-        out = chunked_attention(q, k, v, causal=True, window=window,
-                                pos_q=pos, pos_kv=pos, q_chunk=ctx["q_chunk"],
-                                kv_chunk=ctx["kv_chunk"])
-    return out.reshape(B, S, Hq * hd) @ ap["wo"]
+        out = _attend_plain(ctx, q, k, v, pos, pos, window)
+    return merge_heads(out, ctx) @ ap["wo"]
 
 
 def _ffn_train(cfg, lp, x, ctx):
@@ -571,10 +913,10 @@ def _ffn_train(cfg, lp, x, ctx):
     if "moe" not in lp:
         return mlp(x, lp["ffn"], cfg.mlp_gated), _zero_aux(x)
     B, S, d = x.shape
-    y, aux = moe_ffn(x.reshape(B * S, d), lp["moe"], cfg,
-                     capacity_factor=ctx["capacity_factor"],
-                     kernel_backend="plain")
-    return y.reshape(B, S, d), aux
+    y, aux = _moe(cfg, lp["moe"], _tokens(x, ctx), ctx,
+                  capacity_factor=ctx["capacity_factor"],
+                  capacity_override=0, kernel_backend="plain")
+    return _untokens(y, B, S, ctx), aux
 
 
 def _zero_aux(x):
@@ -585,6 +927,7 @@ def _apply_block_train(cfg, kind, lp, x, ctx):
     """One residual block of ``kind`` over (B, S, d), no cache, from zero
     recurrent state: (x, aux) (``repro.models.transformer.apply_block`` with
     ``mode="train"``).  RWKV6's channel mix starts from a zero shift."""
+    lp = unshard(lp, ctx)
     h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
     if kind == "rwkv6":
         x = x + rwkv6_block(h, lp["tm"], cfg, None, ctx)
@@ -631,40 +974,52 @@ def _run_trunk_train(cfg, params, x, ctx, *, remat):
     ``remat`` each layer is checkpointed (``torch.utils.checkpoint``,
     non-reentrant), as the reference wraps its scanned layer group in
     ``jax.checkpoint``: only the layer inputs are kept, and each layer's
-    forward, its aux among its outputs, runs again in the backward."""
+    forward, its aux among its outputs, runs again in the backward.
+    ``remat="dots"`` keeps the matmul outputs too and recomputes the rest
+    (``checkpoint_dots``: a selective checkpoint that saves ``mm`` /
+    ``bmm`` / ``addmm``)."""
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
     aux_total = _zero_aux(x)
+    x = _constrain(x, ctx)
     for kind, lp in _train_layers(cfg, params):
         if remat:
             x, aux = checkpoint(_apply_block_train, cfg, kind, lp, x, ctx,
-                                use_reentrant=False)
+                                use_reentrant=False, **kw)
         else:
             x, aux = _apply_block_train(cfg, kind, lp, x, ctx)
+        x = _constrain(x, ctx)
         aux_total = aux_total + aux
     return x, aux_total
 
 
 # ============================ frontend forms ================================
-def encode(cfg, params, frontend_emb):
+def encode(cfg, params, frontend_emb, ctx=None):
     """Whisper-style bidirectional encoder over the stub's frame embeddings
     (B, F, frontend_dim): ``frontend_proj`` where the config has it, then
     every ``encoder`` layer (pre-norm self-attention through
     ``full_attention``, non-causal and without positions, and the FFN).
+    ``ctx``: a sharded call's (the model's entry points pass it).
     Returns (B, F, d)."""
+    ctx = ctx or {}
     x = frontend_emb
     if "frontend_proj" in params:
         x = x @ params["frontend_proj"]["w"]
     B, F, _ = x.shape
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     for lp in _unbind(params["encoder"], cfg.num_encoder_layers):
+        lp = unshard(lp, ctx)
         h = rms_norm(x, lp["norm1"]["w"], cfg.norm_eps)
         ap = lp["attn"]
         q, k, v = h @ ap["wq"], h @ ap["wk"], h @ ap["wv"]
         if cfg.qkv_bias:
             q, k, v = q + ap["bq"], k + ap["bk"], v + ap["bv"]
-        out = full_attention(q.reshape(B, F, Hq, hd),
-                             k.reshape(B, F, Hkv, hd),
-                             v.reshape(B, F, Hkv, hd), causal=False)
-        x = x + out.reshape(B, F, Hq * hd) @ ap["wo"]
+        out = _full_attention(ctx, split_heads(q, Hq, hd, ctx),
+                              split_heads(k, Hkv, hd, ctx),
+                              split_heads(v, Hkv, hd, ctx))
+        x = x + merge_heads(out, ctx) @ ap["wo"]
         h2 = rms_norm(x, lp["norm2"]["w"], cfg.norm_eps)
         x = x + mlp(h2, lp["ffn"], cfg.mlp_gated)
     return x
@@ -688,42 +1043,55 @@ def _need_frames(cfg, frontend_emb):
 
 def forward(cfg, params, tokens, frontend_emb=None, *, window=None,
             remat=True, q_chunk=512, kv_chunk=512, capacity_factor=1.25,
-            kernel_backend="cuda"):
+            batch_axes=None, tp_axis=None, kernel_backend="cuda"):
     """Training forward: full-sequence logits (B, S_total, V) and the MoE
     aux loss summed over the layers (zero for the families without a
     router), mirroring ``repro.models.transformer.forward``.  tokens:
     (B, S) int.  An encoder-decoder needs ``frontend_emb`` (its frames);
     a vision config prepends it when given, so S_total = F + S.  The
-    parameters' ``requires_grad`` decides what autograd tracks."""
+    parameters' ``requires_grad`` decides what autograd tracks.  ``remat``:
+    False, True (each layer checkpointed) or ``"dots"`` (the matmul
+    outputs kept).  ``batch_axes`` / ``tp_axis``: a sharded program over
+    the DTensor parameters' mesh (the module docstring)."""
     check_trainable(cfg)
     _check_backend(kernel_backend)
     _need_frames(cfg, frontend_emb)
-    x = embed_tokens(tokens, params["embed"]["w"])
-    enc_out = None
-    if cfg.is_encoder_decoder:
-        enc_out = encode(cfg, params, frontend_emb)
-    elif cfg.frontend == "vision" and frontend_emb is not None:
-        x = prepend_frontend(cfg, params, x, frontend_emb)
-    S = x.shape[1]
-    ctx = {"positions": torch.arange(S, device=x.device), "window": window,
-           "q_chunk": q_chunk, "kv_chunk": kv_chunk, "ssm_chunk": 32,
-           "capacity_factor": capacity_factor,
-           "kernel_backend": kernel_backend, "enc_out": enc_out}
-    x, aux = _run_trunk_train(cfg, params, x, ctx, remat=remat)
-    x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
-    return lm_logits(x, params), aux
+    mesh = sharded_mesh(params, batch_axes, tp_axis)
+    ctx = _shard_kw({"window": window, "q_chunk": q_chunk,
+                     "kv_chunk": kv_chunk, "ssm_chunk": 32,
+                     "capacity_factor": capacity_factor,
+                     "kernel_backend": kernel_backend}, mesh, batch_axes,
+                    tp_axis, kernel_backend)
+    with replicated(ctx):
+        top = _top(params, ctx)
+        x = _embed(tokens, top["embed"]["w"], ctx)
+        enc_out = None
+        if cfg.is_encoder_decoder:
+            enc_out = encode(cfg, params, frontend_emb, ctx)
+        elif cfg.frontend == "vision" and frontend_emb is not None:
+            x = prepend_frontend(cfg, params, x, frontend_emb)
+        S = x.shape[1]
+        ctx.update(positions=torch.arange(S, device=x.device),
+                   enc_out=enc_out)
+        x, aux = _run_trunk_train(cfg, params, x, ctx, remat=remat)
+        x = rms_norm(x, top["final_norm"]["w"], cfg.norm_eps)
+        return _constrain(lm_logits(x, top), ctx), aux
 
 
 # ============================ public entry points ===========================
 def init_cache(cfg, params, batch, max_len, dtype=torch.bfloat16, *,
-               window=None, frontend_emb=None, kv_dtype=None, device=None):
+               window=None, frontend_emb=None, kv_dtype=None, device=None,
+               mesh=None):
     """Fresh decode state: attention rings, recurrent states, and ``pos``.
     ``kv_dtype="int8"`` builds quantized attention rings (int8 payload +
     f32 ``k_scale``/``v_scale``); ``None``/"bf16" keeps the plain ``dtype``
     ring.  ``device`` defaults to the parameters' device.  An
     encoder-decoder encodes ``frontend_emb`` (required) once: the cache
     holds its output ``enc_out`` and every decoder layer's cross K/V
-    ``xk``/``xv`` (B, F, Hkv, hd) in ``dtype``."""
+    ``xk``/``xv`` (B, F, Hkv, hd) in ``dtype``.  Given a ``mesh`` (a
+    ``DeviceMesh``), every leaf is a DTensor laid out by
+    ``params.cache_pspecs``: sharded on its batch dim only, so each rank
+    writes its own rows in place."""
     check_supported(cfg)
     _need_frames(cfg, frontend_emb)
     if device is None:
@@ -745,15 +1113,50 @@ def init_cache(cfg, params, batch, max_len, dtype=torch.bfloat16, *,
              "blocks": {str(pi): stacked(kind)
                         for pi, kind in enumerate(pattern)},
              "tail": tuple(mk(kind) for kind in tail)}
+    if mesh is not None:
+        cache = _distribute_cache(cache, mesh, batch)
     if cfg.is_encoder_decoder:
-        enc_out = cache["enc_out"] = encode(cfg, params, frontend_emb)
-        for kind, (sec, key, r), lp in layer_views(cfg, params):
-            if kind == "attn":
-                st = cache[sec][key]
-                for n in ("xk", "xv"):
-                    leaf = st[n] if r is None else st[n][r]
-                    leaf.copy_((enc_out @ lp["attn"][n]).reshape(leaf.shape))
+        ctx = {"mesh": mesh, "batch_axes": None if mesh is None else
+               batch_pspec(mesh, batch, 1)[0]}
+        with replicated(ctx):
+            enc_out = encode(cfg, params, frontend_emb, ctx)
+            if mesh is not None:
+                enc_out = redistribute_to(enc_out, cache_pspecs(
+                    {"enc_out": enc_out}, mesh, batch)[("enc_out",)])
+            cache["enc_out"] = enc_out
+            for kind, (sec, key, r), lp in layer_views(cfg, params):
+                if kind == "attn":
+                    st = cache[sec][key]
+                    for n in ("xk", "xv"):
+                        leaf = st[n] if r is None else st[n][r]
+                        val = split_heads(enc_out @ lp["attn"][n],
+                                           cfg.num_kv_heads, cfg.head_dim,
+                                           ctx)
+                        if is_dtensor(leaf):
+                            with torch.no_grad():
+                                leaf.to_local().copy_(local_rows(val, leaf))
+                        else:
+                            leaf.copy_(val)
     return cache
+
+
+def _distribute_cache(cache, mesh, batch):
+    """Every leaf of a fresh cache as a DTensor on ``mesh``, laid out by
+    ``cache_pspecs``."""
+    from torch.distributed.tensor import distribute_tensor
+    specs = cache_pspecs(cache, mesh, batch)
+
+    def dist(path, node):
+        if isinstance(node, torch.Tensor):
+            # the same zeros on every rank: each keeps its chunk, no
+            # collective
+            return distribute_tensor(node, mesh,
+                                     param_placements(specs[path], mesh),
+                                     src_data_rank=None)
+        if isinstance(node, dict):
+            return {k: dist(path + (k,), v) for k, v in node.items()}
+        return tuple(dist(path + (str(i),), v) for i, v in enumerate(node))
+    return dist((), cache)
 
 
 def _check_backend(kernel_backend):
@@ -763,61 +1166,78 @@ def _check_backend(kernel_backend):
 
 
 def _extend(cfg, params, cache, tokens, *, window=None, frontend_emb=None,
-            q_chunk=512, kv_chunk=512, kernel_backend="cuda", active=None,
-            layers=None):
+            q_chunk=512, kv_chunk=512, capacity_factor=1.25, batch_axes=None,
+            tp_axis=None, kernel_backend="cuda", active=None, layers=None):
     _check_backend(kernel_backend)
-    x = embed_tokens(tokens, params["embed"]["w"])
-    if cfg.frontend == "vision" and frontend_emb is not None:
-        x = prepend_frontend(cfg, params, x, frontend_emb)
-    C = x.shape[1]
-    pos = cache["pos"][:, None] + torch.arange(
-        C, dtype=torch.int32, device=tokens.device)[None, :]
-    ctx = {"pos": pos, "window": window, "q_chunk": q_chunk,
-           "kv_chunk": kv_chunk, "ssm_chunk": 32,
-           "kernel_backend": kernel_backend, "active": active,
-           "enc_out": cache.get("enc_out")}
-    layers = layer_views(cfg, params) if layers is None else layers
-    x = _run_trunk(cfg, layers, x, cache, ctx)
-    if active is None:
-        cache["pos"] += C
-    else:
-        cache["pos"] += active.to(torch.int32) * C
-    x_last = rms_norm(x[:, -1, :], params["final_norm"]["w"], cfg.norm_eps)
-    return lm_logits(x_last, params)
+    mesh = sharded_mesh(params, batch_axes, tp_axis)
+    ctx = _shard_kw({"window": window, "q_chunk": q_chunk,
+                     "kv_chunk": kv_chunk, "ssm_chunk": 32,
+                     "capacity_factor": capacity_factor,
+                     "kernel_backend": kernel_backend, "active": active,
+                     "enc_out": cache.get("enc_out")}, mesh, batch_axes,
+                    tp_axis, kernel_backend)
+    with replicated(ctx):
+        top = _top(params, ctx)
+        x = _embed(tokens, top["embed"]["w"], ctx)
+        if cfg.frontend == "vision" and frontend_emb is not None:
+            x = prepend_frontend(cfg, params, x, frontend_emb)
+        C = x.shape[1]
+        ctx["pos"] = cache["pos"][:, None] + torch.arange(
+            C, dtype=torch.int32, device=tokens.device)[None, :]
+        layers = layer_views(cfg, params) if layers is None else layers
+        x = _run_trunk(cfg, layers, x, cache, ctx)
+        if active is None:
+            cache["pos"] += C
+        else:
+            cache["pos"] += active.to(torch.int32) * C
+        x_last = rms_norm(x[:, -1, :], top["final_norm"]["w"],
+                          cfg.norm_eps)
+        return _constrain(lm_logits(x_last, top), ctx)
 
 
 def extend(cfg, params, cache, tokens, *, window=None, frontend_emb=None,
-           q_chunk=512, kv_chunk=512, kernel_backend="cuda"):
+           q_chunk=512, kv_chunk=512, capacity_factor=1.25, batch_axes=None,
+           tp_axis=None, kernel_backend="cuda"):
     """Process a chunk of C tokens against the cache (C == 1 => decode
     step).  tokens: (B, C) int; a vision config's ``frontend_emb`` (B, F,
     frontend_dim) goes before them, making the chunk F + C long.  Updates
-    ``cache`` in place and returns (logits_last (B, V), cache)."""
+    ``cache`` in place and returns (logits_last (B, V), cache).  A prefill
+    chunk's MoE runs at ``capacity_factor`` (a decode step is dropless).
+    ``batch_axes`` / ``tp_axis``: a sharded program over the DTensor
+    parameters' mesh, on a cache from ``init_cache(..., mesh=)``."""
     logits = _extend(cfg, params, cache, tokens, window=window,
                      frontend_emb=frontend_emb, q_chunk=q_chunk,
-                     kv_chunk=kv_chunk, kernel_backend=kernel_backend)
+                     kv_chunk=kv_chunk, capacity_factor=capacity_factor,
+                     batch_axes=batch_axes, tp_axis=tp_axis,
+                     kernel_backend=kernel_backend)
     return logits, cache
 
 
 def prefill(cfg, params, tokens, *, max_len=None, window=None,
             frontend_emb=None, dtype=torch.bfloat16, kv_dtype=None,
-            q_chunk=512, kv_chunk=512, kernel_backend="cuda"):
+            q_chunk=512, kv_chunk=512, capacity_factor=1.25, batch_axes=None,
+            tp_axis=None, kernel_backend="cuda"):
     """Full prefill: a fresh batch-``B`` cache of ``max_len`` (default: the
     prompt's length, plus ``frontend_tokens`` for a vision config) and one
     :func:`extend` over the whole prompt.  ``frontend_emb`` is an
     encoder-decoder's frames (encoded into the cache) or a vision config's
     patch embeddings (prepended to the prompt).  tokens: (B, S) int on the
-    parameters' device.  Returns (logits_last (B, V), cache)."""
+    parameters' device.  Sharded (``batch_axes`` / ``tp_axis``), the cache
+    is built on the parameters' mesh.  Returns (logits_last (B, V),
+    cache)."""
     B, S = tokens.shape
     vision = cfg.frontend == "vision"
+    mesh = sharded_mesh(params, batch_axes, tp_axis)
     cache = init_cache(cfg, params, B,
                        max_len or S + (cfg.frontend_tokens if vision else 0),
                        dtype, window=window, kv_dtype=kv_dtype,
                        frontend_emb=frontend_emb if cfg.is_encoder_decoder
-                       else None)
+                       else None, mesh=mesh)
     return extend(cfg, params, cache, tokens, window=window,
                   frontend_emb=frontend_emb if vision else None,
                   q_chunk=q_chunk, kv_chunk=kv_chunk,
-                  kernel_backend=kernel_backend)
+                  capacity_factor=capacity_factor, batch_axes=batch_axes,
+                  tp_axis=tp_axis, kernel_backend=kernel_backend)
 
 
 def extend_row(cfg, params, pool, tokens, slot: int, kv_limit=None,

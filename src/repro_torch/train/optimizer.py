@@ -8,6 +8,9 @@ the gradients (as scratch) in place, one leaf at a time, so the update
 needs at most a leaf's worth of extra memory.  The state holds the moments
 by the parameters' ``state_dict`` names; leaves are walked in the order of
 the reference's ``tree_flatten_with_path`` (sorted keys at every level).
+Sharded parameters (DTensors) get moments laid out as they are, and the
+update runs on each rank's shards (the global norm is reduced over the
+mesh).
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ import math
 from typing import Dict, List, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.models.sharding import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +53,10 @@ def param_leaves(params) -> List[Tuple[str, torch.Tensor]]:
 def init_opt_state(params) -> AdamWState:
     leaves = param_leaves(params)
     dev = leaves[0][1].device
-    zeros = lambda: {n: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
-                                    device=dev) for n, p in leaves}
+    zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                     if is_dtensor(p) else
+                     torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for n, p in leaves}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=zeros(), v=zeros())
 
@@ -68,8 +75,10 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, in f32 (an f32 tensor
-    is read in place, with no squared copy)."""
-    sq = [torch.dot(t.float().reshape(-1), t.float().reshape(-1))
+    is read in place, with no squared copy; a DTensor's is reduced over
+    its mesh)."""
+    sq = [t.float().square().sum().full_tensor() if is_dtensor(t) else
+          torch.dot(t.float().reshape(-1), t.float().reshape(-1))
           for t in tensors]
     return torch.sqrt(torch.stack(sq).sum())
 
@@ -91,6 +100,15 @@ def adamw_update(opt_cfg: AdamWConfig, params, grads, state: AdamWState):
     state_dict name (consumed: each is used as scratch).  Returns (params,
     new state, {"lr", "grad_norm"})."""
     leaves = param_leaves(params)
+    if any(is_dtensor(p) for _, p in leaves):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():  # the scalars meet the shards
+            return _adamw_update(opt_cfg, leaves, params, grads, state)
+    return _adamw_update(opt_cfg, leaves, params, grads, state)
+
+
+def _adamw_update(opt_cfg, leaves, params, grads, state):
     gnorm = global_norm(grads[n] for n, _ in leaves)
     scale = torch.clamp(opt_cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1

@@ -8,6 +8,7 @@ Tolerance for attention: 2e-5 in f32 — the reference's own
 kernel-vs-oracle tolerance (tests/test_kernels.py); only the summation
 order differs.  The scans' tolerances stand beside their tests."""
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as J_ARCHS
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as JA
@@ -675,3 +677,329 @@ def test_flash_wrappers_raise_off_cpu_without_kernel():
         ops.flash_attention(q, k, k)
     with pytest.raises(ValueError, match="no kernel"):
         ops.flash_attention_bwd(q, k, k, q, lse, q)
+
+
+# -- sharding and cost tooling: the reference's production meshes, sharding
+# rules, sharded entry points, op costs and dry run (torch_shard_cases.py)
+class _StandInMesh:
+    """What the reference's rules read of a ``Mesh``: ``axis_names`` and
+    the ``shape`` mapping."""
+
+    def __init__(self, shape, names):
+        self.axis_names = names
+        self.shape = dict(zip(names, shape))
+
+
+SHARD_MESHES = {"16x16": ((16, 16), ("data", "model")),
+                "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+SHARD_ARCHS = sorted(J_ARCHS)
+
+
+def _jax_spec_tree(tree):
+    """{path tuple: tuple(spec)} of a tree of ``PartitionSpec``s."""
+    from jax.sharding import PartitionSpec
+    return {tuple(str(getattr(k, "key", getattr(k, "idx", k)))
+                  for k in path): tuple(s)
+            for path, s in jax.tree_util.tree_leaves_with_path(
+                tree, is_leaf=lambda x: isinstance(x, PartitionSpec))}
+
+
+@functools.lru_cache(maxsize=None)
+def _full_width(arch):
+    """The reference's parameter shapes (``jax.eval_shape``) and the port's
+    (``init_params`` on the meta device) of ``arch`` at full width."""
+    from repro import models as J
+    from repro.configs import get_config
+    from repro_torch.configs import get_config as t_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch)
+    jp = jax.eval_shape(lambda k: J.init_params(cfg, k, dtype=jnp.bfloat16),
+                        jax.random.PRNGKey(0))
+    return cfg, jp, t_config(arch), init_params(
+        t_config(arch), dtype=torch.bfloat16, device="meta")
+
+
+@pytest.mark.parametrize("fsdp", ["auto", "off"])
+@pytest.mark.parametrize("mesh", SHARD_MESHES)
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
+def test_param_pspecs_match_reference(arch, mesh, fsdp):
+    """Every parameter leaf of every config at full width gets the
+    reference's spec, on both production meshes, FSDP on and off."""
+    from repro.models.params import param_pspecs as j_pspecs
+    from repro_torch.models.params import param_pspecs
+    _, jp, _, tp = _full_width(arch)
+    m = _StandInMesh(*SHARD_MESHES[mesh])
+    want = {".".join(k): v for k, v in
+            _jax_spec_tree(j_pspecs(jp, m, fsdp=fsdp)).items()}
+    got = param_pspecs(tp, m, fsdp=fsdp)
+    assert set(got) == set(want)
+    for name, spec in want.items():
+        assert got[name] == spec, (name, got[name], spec)
+        assert repr(got[name]).startswith("PartitionSpec(")
+
+
+@pytest.mark.parametrize("mesh", SHARD_MESHES)
+@pytest.mark.parametrize("arch", SHARD_ARCHS)
+def test_batch_and_cache_pspecs_match_reference(arch, mesh):
+    """``batch_pspec`` for the four shapes' batches and a batch of 2 (the
+    pod axis alone), and ``cache_pspecs`` on every cache leaf of a batch
+    of 128 and of 2, equal the reference's."""
+    from repro import models as J
+    from repro.models.params import batch_pspec as j_batch
+    from repro.models.params import cache_pspecs as j_cache
+    from repro_torch.models import init_cache
+    from repro_torch.models.params import batch_pspec, cache_pspecs
+    cfg, jp, tcfg, tp = _full_width(arch)
+    m = _StandInMesh(*SHARD_MESHES[mesh])
+    for b in (1, 2, 32, 128, 256):
+        for nd in (1, 2, 3):
+            assert batch_pspec(m, b, nd) == tuple(j_batch(m, b, nd))
+    for b in (128, 2):
+        fe = None if cfg.frontend == "none" else jax.ShapeDtypeStruct(
+            (b, cfg.frontend_tokens, cfg.frontend_dim), jnp.bfloat16)
+        jc = jax.eval_shape(lambda p, f: J.init_cache(
+            cfg, p, b, 4096, jnp.bfloat16, frontend_emb=f), jp, fe)
+        tfe = None if fe is None else torch.empty(
+            fe.shape, dtype=torch.bfloat16, device="meta")
+        tc = init_cache(tcfg, tp, b, 4096, torch.bfloat16, frontend_emb=tfe)
+        want = _jax_spec_tree(j_cache(jc, m, b))
+        got = cache_pspecs(tc, m, b)
+        assert set(got) == set(want)
+        for path, spec in want.items():
+            assert got[path] == spec, (path, got[path], spec)
+
+
+def test_param_placements_follow_mesh_order():
+    """A dim sharded over ("pod", "data") is ``Shard`` on both mesh dims,
+    in mesh (major-to-minor) order; unnamed mesh dims replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.models.params import P, param_placements
+    m = _StandInMesh(*SHARD_MESHES["2x16x16"])
+    assert param_placements(P(("pod", "data"), "model"), m) == [
+        Shard(0), Shard(0), Shard(1)]
+    assert param_placements(P(None, "data"), m) == [
+        Replicate(), Shard(1), Replicate()]
+
+
+def test_production_mesh_raises_typed_on_world_of_one():
+    """As the reference on a short device list: a typed error carrying the
+    requested and available counts, never a silent reshape."""
+    from repro_torch.launch.mesh import MeshDeviceError, make_production_mesh
+    for mp, n in ((False, 256), (True, 512)):
+        with pytest.raises(MeshDeviceError) as ei:
+            make_production_mesh(multi_pod=mp, device="cpu")
+        assert (ei.value.requested, ei.value.available) == (n, 1)
+        assert isinstance(ei.value, RuntimeError)
+
+
+def test_sharded_call_without_a_mesh_raises():
+    """``batch_axes`` / ``tp_axis`` on plain parameters: no unsharded
+    fallback."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import forward, init_params, prefill
+    cfg = get_tiny_config("llama3-405b")
+    params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    toks = torch.zeros((2, 8), dtype=torch.int64)
+    for kw in (dict(batch_axes="data"), dict(tp_axis="model")):
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            forward(cfg, params, toks, kernel_backend="plain", **kw)
+        with pytest.raises(ValueError, match="DeviceMesh"):
+            prefill(cfg, params, toks, kernel_backend="plain", **kw)
+
+
+def test_op_cost_matmul_flops_exact():
+    from repro_torch.launch.opcost import op_cost
+    c = op_cost(lambda a, b: a @ b, torch.zeros(128, 256),
+                torch.zeros(256, 512))
+    assert c["flops"] == 2 * 128 * 256 * 512
+    assert c["collective_total"] == 0 and c["collective_count"] == 0
+
+
+def test_op_cost_counts_every_iteration():
+    """A Python loop of N products counts N times (the reference multiplies
+    a scan body by its trip count)."""
+    from repro_torch.launch.opcost import op_cost
+    N = 17
+
+    def f(w, x):
+        for _ in range(N):
+            x = x @ w
+        return x
+    c = op_cost(f, torch.zeros(64, 64), torch.zeros(8, 64))
+    assert c["flops"] == 2 * 8 * 64 * 64 * N
+
+
+@pytest.mark.parametrize("how", ["slice", "index"])
+def test_op_cost_inplace_row_write_not_whole_buffer(how):
+    """A 1-row write into a big buffer counts the row, not the buffer."""
+    from repro_torch.launch.opcost import op_cost
+    buf, row = torch.zeros(4096, 1024), torch.ones(1, 1024)
+
+    def f(buf, row):
+        if how == "slice":
+            buf[17:18] = row
+        else:
+            buf[torch.tensor([17])] = row
+    c = op_cost(f, buf, row)
+    assert 0 < c["bytes"] < 4 * 1024 * 4, c["bytes"]
+
+
+def test_remat_dots_keeps_matmuls_and_gradients():
+    """``remat="dots"``: the gradients of ``remat=True`` bit for bit, and a
+    backward that recomputes fewer matmul flops (their outputs are
+    kept)."""
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.launch.opcost import op_cost
+    from repro_torch.models import forward, init_params
+    cfg = get_tiny_config("llama3-405b")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 16)))
+    grads, flops = {}, {}
+    for remat in (True, "dots"):
+        params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        for p in params.parameters():
+            p.requires_grad_(True)
+        logits, _ = forward(cfg, params, toks, remat=remat,
+                            kernel_backend="plain")
+        flops[remat] = op_cost(lambda: logits.float().square().mean()
+                               .backward())["flops"]
+        grads[remat] = {n: p.grad for n, p in params.named_parameters()}
+    for n, g in grads[True].items():
+        assert torch.equal(g, grads["dots"][n]), n
+    assert flops["dots"] < flops[True]
+
+
+@pytest.fixture(scope="module")
+def shard_probe():
+    import torch_shard_cases as SC
+    return SC.run_probe()
+
+
+def test_production_meshes_on_fake_group(shard_probe):
+    """On a fake 512-rank group: the reference's shapes and axis names,
+    over the group's first ranks in order, on the CPU when asked."""
+    m = shard_probe["meshes"]
+    assert m["False"] == [[16, 16], ["data", "model"], "cpu", [0, 1, 2]]
+    assert m["True"] == [[2, 16, 16], ["pod", "data", "model"], "cpu",
+                         [0, 1, 2]]
+
+
+def test_op_cost_sharded_product_is_per_chip(shard_probe):
+    """A (512, 256) @ (256, 128) product with its rows over 4 ranks: each
+    chip counts a quarter of the global flops."""
+    assert shard_probe["sharded_flops"] == 2 * 512 * 256 * 128 / 4
+
+
+def test_op_cost_collective_bytes(shard_probe):
+    """An all-gather of a (64, 32) f32 tensor and the all-reduce of a
+    (64, 16) f32 partial sum, by kind, at their result's local bytes."""
+    ag, ar = shard_probe["all_gather"], shard_probe["all_reduce"]
+    assert ag["collectives"]["all-gather"] == 64 * 32 * 4
+    assert ag["collective_count"] == 1
+    assert ar["collectives"]["all-reduce"] == 64 * 16 * 4
+    assert ar["collective_count"] == 1
+    assert ar["flops"] == 2 * 64 * 8 * 16  # the local (64, 8) @ (8, 16)
+
+
+@pytest.mark.parametrize("name", [
+    "decode_attention", "decode_attention_partials", "flash_attention_pool",
+    "moe_gemm", "moe_gemm_with", "rglru_scan", "rwkv6_scan",
+    "flash_attention", "flash_attention_bwd", "flash_attention_train"])
+def test_kernel_wrappers_refuse_dtensor(shard_probe, name):
+    assert shard_probe["refused"][name] == "TypeError"
+
+
+_REFERENCE_RECORD_KEYS = {
+    "arch", "shape", "mesh", "chips", "status", "serve_sharding", "q_chunk",
+    "kv_chunk", "lower_s", "compile_s", "memory", "cost_analysis_raw",
+    "hlo_flops_per_chip", "hlo_bytes_per_chip", "collectives",
+    "collective_bytes_per_chip", "collective_count", "model_flops_global",
+    "hlo_lines", "roofline"}
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "long_500k"])
+@pytest.mark.parametrize("arch", ["llama3-405b", "qwen2-moe-a2.7b"])
+def test_dryrun_tiny_records(shard_probe, arch, shape):
+    """The dry run of a dense and an MoE arch (tiny) on both production
+    meshes: ``ok`` with the reference's keys and an H100 roofline, or
+    ``skipped`` exactly where ``shape_supported`` says."""
+    from repro.configs import get_tiny_config
+    from repro.launch.shapes import shape_supported
+    from repro_torch.launch import dryrun
+    recs = [r for r in shard_probe["dryrun"]
+            if r["arch"] == arch and r["shape"] == shape]
+    assert sorted(r["mesh"] for r in recs) == ["16x16", "2x16x16"]
+    supported, _ = shape_supported(get_tiny_config(arch), shape)
+    for r in recs:
+        if not supported:
+            assert r["status"] == "skipped"
+            continue
+        assert r["status"] == "ok"
+        assert set(r) == _REFERENCE_RECORD_KEYS
+        assert r["hlo_flops_per_chip"] > 0 and r["hlo_bytes_per_chip"] > 0
+        rf = r["roofline"]
+        assert rf["t_compute"] == r["hlo_flops_per_chip"] / dryrun.PEAK_FLOPS
+        assert rf["t_memory"] == r["hlo_bytes_per_chip"] / dryrun.HBM_BW
+        assert rf["t_collective"] == \
+            r["collective_bytes_per_chip"] / dryrun.NVLINK_BW
+        assert (dryrun.PEAK_FLOPS, dryrun.HBM_BW, dryrun.NVLINK_BW) == \
+            (989e12, 3.35e12, 450e9)
+        assert r["memory"]["argument_bytes"] > 0
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """The reference's unsharded runs and the port's sharded ones on four
+    gloo ranks (``torch_shard_cases``)."""
+    import torch_shard_cases as SC
+    tmp = str(tmp_path_factory.mktemp("shard"))
+    refs = {a: SC.reference(a, tmp) for a in {a for a, _ in SC.CASES}}
+    out = os.path.join(tmp, "sharded.npz")
+    rcs, logs = SC.run_workers({a: r["weights"] for a, r in refs.items()},
+                               out)
+    assert rcs == [0] * SC.WORLD, logs[0][-4000:]
+    return refs, dict(np.load(out))
+
+
+@pytest.mark.parametrize("check", ["forward", "prefill_decode",
+                                   "rows_kernels", "loss_grads",
+                                   "remat_dots", "train_step"])
+@pytest.mark.parametrize("case", ["llama3-405b-2x2", "llama3-405b-1x4",
+                                  "qwen2-moe-a2.7b-2x2"])
+def test_sharded_entry_points_match_reference(sharded_runs, case, check):
+    """``forward``, ``prefill`` + 4 decode ``extend`` calls (also
+    batch-sharded through the attention kernels' wrappers), the loss and
+    every gradient, ``remat="dots"`` and one train step, all sharded
+    (``batch_axes="data"``, ``tp_axis="model"``) on four gloo ranks, held
+    to the reference's unsharded runs at the parity standard."""
+    import torch_shard_cases as SC
+    refs, res = sharded_runs
+    arch = case.rsplit("-", 1)[0]
+    ref = refs[arch]
+    if check == "forward":
+        np.testing.assert_allclose(res[f"{case}/forward"], ref["forward"],
+                                   rtol=SC.PREFILL_TOL, atol=SC.PREFILL_TOL)
+    elif check in ("prefill_decode", "rows_kernels"):
+        key = "steps" if check == "prefill_decode" else "rows_steps"
+        got = res[f"{case}/{key}"]
+        assert len(got) == SC.DECODE_STEPS + 1
+        for i, (g, w) in enumerate(zip(got, ref["steps"])):
+            tol = SC.PREFILL_TOL if i == 0 else SC.DECODE_TOL
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
+    elif check in ("loss_grads", "remat_dots"):
+        remat = "True" if check == "loss_grads" else "dots"
+        loss = float(res[f"{case}/loss/{remat}"])
+        assert abs(loss - ref["loss"]) <= SC.LOSS_REL * abs(ref["loss"])
+        for name, w in ref["grads"].items():
+            g = res[f"{case}/grad/{remat}/{name}"]
+            assert g.shape == w.shape, name
+            rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+            assert rel <= SC.GRAD_REL, (name, rel)
+            if remat == "dots":
+                assert np.array_equal(g, res[f"{case}/grad/True/{name}"]), \
+                    name
+    else:
+        loss = float(res[f"{case}/step_loss"])
+        assert abs(loss - ref["loss"]) <= SC.LOSS_REL * abs(ref["loss"])
+        assert bool(res[f"{case}/moments_laid_out"])
