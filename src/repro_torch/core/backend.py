@@ -35,6 +35,7 @@ from repro_torch.core.faults import (AllocationFault, FaultError,
 from repro_torch.core.prefixcache import (PrefixCache,
                                           prefix_reuse_supported)
 from repro_torch.core.requests import Request
+from repro_torch.core.tracing import Tracer
 
 TokenCallback = Callable[[Request, int], None]
 
@@ -503,6 +504,8 @@ class TorchRealBackend(ExecutionBackend):
         self._seg_solo_steps = 0
         self._seg_co_time = 0.0
         self._seg_co_steps = 0
+        # in-program spans (core.tracing); the engine hands in its own
+        self.tracer = Tracer()
 
     def _new_pool(self, slots: int):
         from repro_torch.models import init_cache
@@ -537,7 +540,20 @@ class TorchRealBackend(ExecutionBackend):
                 raise PermanentDeviceFault(
                     f"transient device fault at {stage} persisted past "
                     f"{self._fault_retry_max} segment replays")
-        return fn(*args, **kw)
+        tr = self.tracer
+        if not tr.on:
+            return fn(*args, **kw)
+        with tr.span("backend.launch", rid):  # the host's eager enqueue
+            return fn(*args, **kw)
+
+    def _to_host(self, t, rid: Optional[int] = None):
+        """Fetch ``t`` to the host as a numpy array: a device-to-host sync
+        (a ``backend.sync`` span when tracing)."""
+        tr = self.tracer
+        if not tr.on:
+            return t.cpu().numpy()
+        with tr.span("backend.sync", rid):
+            return t.cpu().numpy()
 
     # -- device programs (launched through _call) -----------------------------
     def _prefill_chunk(self, sizes: tuple, buf, start: int, slot: int, *,
@@ -953,6 +969,18 @@ class TorchRealBackend(ExecutionBackend):
                       now: float) -> None:
         if req.tokens is None or req.id in self._quarantined:
             return
+        tr = self.tracer
+        if not tr.on:
+            return self._prefill_piece(req, seq_start, tokens)
+        t = time.perf_counter_ns()
+        tr.flow_mark(req.id, "sched.queued", t)  # its first prefill work
+        sp = tr.open("backend.chunk", req.id, start=t,
+                     tokens=tokens, pos=seq_start)
+        self._prefill_piece(req, seq_start, tokens)
+        tr.close(sp)
+
+    def _prefill_piece(self, req: Request, seq_start: int,
+                       tokens: int) -> None:
         self._track_prefill(req.id)
         try:
             if self.in_pool_prefill:
@@ -968,10 +996,14 @@ class TorchRealBackend(ExecutionBackend):
         if req.id in self._quarantined:
             return
         self._untrack_prefill(req.id)
+        tr = self.tracer
+        sp = tr.open("backend.prefill_finish", req.id) if tr.on else None
         try:
             self._prefill_done(req, now)
         except FaultError as e:
             self._record_flow_fault(req, e, "prefill")
+        if sp is not None:
+            tr.close(sp)
 
     def _prefill_done(self, req: Request, now: float) -> None:
         rid = req.id
@@ -985,7 +1017,7 @@ class TorchRealBackend(ExecutionBackend):
                 heapq.heappush(self._free, self._slot.pop(rid))
                 self._row_pos.pop(rid, None)
                 return
-            first = int(nxt)  # the one host sync of this prefill
+            first = int(self._to_host(nxt, rid))  # this prefill's one sync
             self.host_syncs += 1
             self.prefill_host_syncs += 1
             self._row_pos.pop(rid, None)
@@ -1019,7 +1051,7 @@ class TorchRealBackend(ExecutionBackend):
                 self._set_source(n, None)
         self._last[rid] = first
         self._texts[rid] = [first]
-        self._emit(req, first)
+        self._emit_first(req, first)
 
     # -- decode ---------------------------------------------------------------
     def decode_run(self, reqs: List[Request], n_steps: int,
@@ -1075,7 +1107,9 @@ class TorchRealBackend(ExecutionBackend):
         self._pressure_est.add("decode", self.decode_bw_util)
         self.contention_pressure_peak = max(
             self.contention_pressure_peak, self._pressure_est.pressure)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        tr = self.tracer
+        sp = tr.open("backend.segment", start=t0) if tr.on else None
         blocks = []
         for b in _pow2_buckets(n):
             rows, kvl = self._elastic_extent(slots, b)
@@ -1083,8 +1117,12 @@ class TorchRealBackend(ExecutionBackend):
             self.decode_device_calls += 1
             self._account_decode(slots, b, rows, kvl)
             blocks.append(block)
-        full = self._torch.cat(blocks).cpu().numpy()  # the one host sync
-        seg_wall = time.perf_counter() - t0
+        full = self._to_host(self._torch.cat(blocks))  # the one host sync
+        t1 = time.perf_counter_ns()
+        if sp is not None:
+            tr.close(sp, t1, steps=n, live=len(slots), rows=rows,
+                     kv_limit=kvl)
+        seg_wall = (t1 - t0) / 1e9
         self._pressure_est.remove("decode")
         if co_executed:
             self.co_executed_segments += 1
@@ -1121,6 +1159,8 @@ class TorchRealBackend(ExecutionBackend):
             self._replay_row(live)
             return
         slots = [self._slot[r.id] for r in live]
+        tr = self.tracer
+        sp = tr.open("backend.decode_step") if tr.on else None
         batch = None
         if self.device_resident:
             self._sync_mask(slots)
@@ -1139,9 +1179,11 @@ class TorchRealBackend(ExecutionBackend):
         nxt = self._decode_call(1, rows, kvl, fused=False, batch=batch)
         self.decode_device_calls += 1
         self._account_decode(slots, 1, rows, kvl)
-        nxt = nxt.cpu().numpy()  # the one host sync of this iteration
+        nxt = self._to_host(nxt)  # the one host sync of this iteration
         self.host_syncs += 1
         self._commit(live, nxt)
+        if sp is not None:
+            tr.close(sp, live=len(live), rows=rows, kv_limit=kvl)
 
     def _replay_row(self, live: List[Request]):
         """One committed iteration of an already executed fused run: tokens
@@ -1159,11 +1201,15 @@ class TorchRealBackend(ExecutionBackend):
         self._commit(live, row)
 
     def _commit(self, live: List[Request], tokens_by_slot):
+        tr = self.tracer
+        sp = tr.open("backend.emit", rows=len(live)) if tr.on else None
         for r in live:
             t = int(tokens_by_slot[self._slot[r.id]])
             self._last[r.id] = t
             self._texts[r.id].append(t)
             self._emit(r, t)
+        if sp is not None:
+            tr.close(sp)
 
     def _drop_flow_state(self, rid: int) -> None:
         """Free one flow's slot and host bookkeeping (``finish`` and
@@ -1199,6 +1245,8 @@ class TorchRealBackend(ExecutionBackend):
         node = self._hit_node.pop(rid, None)
         if node is not None and self._prefix is not None:
             self._prefix.unpin(node)
+        if self.tracer.on:  # retired before its first token, if at all
+            self.tracer.flow_drop(rid)
 
     def finish(self, req: Request, now: float) -> None:
         slot = self._slot.get(req.id)
@@ -1248,6 +1296,18 @@ class TorchRealBackend(ExecutionBackend):
         self._fused_left = 0
 
     # -- output ----------------------------------------------------------------
+    def _emit_first(self, req: Request, first: int):
+        """Emit a prefill's first token: the end of its ``sched.prefill``
+        span (and of ``sched.queued``, for a prefill that ran no chunk)."""
+        tr = self.tracer
+        if not tr.on:
+            return self._emit(req, first)
+        t = time.perf_counter_ns()
+        tr.flow_mark(req.id, "sched.queued", t)
+        tr.flow_mark(req.id, "sched.prefill", t)
+        with tr.span("backend.emit", req.id, rows=1):
+            self._emit(req, first)
+
     def _emit(self, req: Request, token: int):
         """Per-token user-hook boundary: an exception from ONE flow's
         callback is parked as a ``FlowFault`` (the flow is quarantined as
@@ -1665,12 +1725,10 @@ class DualDeviceBackend(TorchRealBackend):
             # per prefill happens at the handoff, never per chunk
             self._nxt_dev[rid] = nxt
 
-    def prefill_chunk(self, req: Request, seq_start: int, tokens: int,
-                      now: float) -> None:
-        if req.tokens is None or req.id in self._quarantined:
-            return
+    def _prefill_piece(self, req: Request, seq_start: int,
+                       tokens: int) -> None:
         if not self._stage_for(req, seq_start):
-            super().prefill_chunk(req, seq_start, tokens, now)
+            super()._prefill_piece(req, seq_start, tokens)
             return
         self._track_prefill(req.id)
         try:
@@ -1761,7 +1819,7 @@ class DualDeviceBackend(TorchRealBackend):
         # the ONE host sync of this prefill, on the prefill lane: it waits
         # on that lane's chain only, never on queued decode segments
         with self._on_lane():
-            first = int(nxt)
+            first = int(self._to_host(nxt, rid))
         self.host_syncs += 1
         self.prefill_host_syncs += 1
         self._slot_pos[slot] = req.prompt_len
@@ -1776,7 +1834,7 @@ class DualDeviceBackend(TorchRealBackend):
                 self._set_source(node, None)
         self._last[rid] = first
         self._texts[rid] = [first]
-        self._emit(req, first)
+        self._emit_first(req, first)
 
     def _drop_flow_state(self, rid: int) -> None:
         # mid-prefill abort / quarantine / release of a staged flow: the

@@ -25,6 +25,7 @@ from repro_torch.core.heg import HEG
 from repro_torch.core.requests import Priority, Request, ReqState
 from repro_torch.core.scheduler import AgentXpuScheduler, SchedulerBase
 from repro_torch.core.simulator import Simulator, SimMetrics
+from repro_torch.core.tracing import Tracer
 
 
 def stream_printer(prefix: str = "  ") -> TokenCallback:
@@ -62,10 +63,15 @@ class AgentXPUEngine:
         self._sim: Optional[Simulator] = None  # live event loop, if any
         self._sched: Optional[SchedulerBase] = None  # scheduler of that loop
         self._arrival_poll = None
+        # in-program spans (core.tracing): off until ``tracer.enable()``;
+        # shared with every run's scheduler and simulator, the backend and
+        # the serving front end
+        self.tracer = Tracer()
 
     def _run(self, requests: List[Request], max_time: float) -> SimMetrics:
         sched = make_scheduler(self.scheduler_name, self.heg,
                                backend=self.backend, **self.sched_kw)
+        sched.tracer = self.tracer
         self._sched = sched  # cancel() targets the LIVE scheduler
         # per-turn poll composition (DESIGN.md §12), in order: (1) the
         # scheduler quarantines parked backend faults / expired deadlines
@@ -82,7 +88,8 @@ class AgentXPUEngine:
                 backend.validate(strict=True)
             if arrival is not None:
                 arrival(now)
-        sim = Simulator(sched, requests, max_time=max_time, poll=poll)
+        sim = Simulator(sched, requests, max_time=max_time, poll=poll,
+                        tracer=self.tracer)
         self._sim = sim
         try:
             metrics = sim.run()
@@ -203,6 +210,7 @@ class RealAgentXPUEngine(AgentXPUEngine):
             pool_slots_max=pool_slots_max,
             isolate_flow_faults=isolate_flow_faults, faults=faults,
             **backend_kw)
+        self.backend.tracer = self.tracer
         # default SLO for human-facing flows: reactive requests submitted
         # without their own deadline inherit this (seconds from arrival)
         self.deadline_s = deadline_s

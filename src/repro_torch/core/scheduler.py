@@ -16,6 +16,7 @@ decode iteration (the iGPU dynamic kernel).
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -26,6 +27,7 @@ from repro_torch.core.faults import AdmissionRejected
 from repro_torch.core.heg import HEG, HEGNode, KernelKind
 from repro_torch.core.preemption import ReqContext
 from repro_torch.core.requests import Priority, ReqState, Request
+from repro_torch.core.tracing import Tracer
 
 
 @dataclasses.dataclass
@@ -127,6 +129,9 @@ class SchedulerBase:
         # rung firings in order ("evict"/"shrink"/"defer"/"reject") — the
         # chaos suite asserts the ladder is walked top-down
         self.ladder_events: List[str] = []
+        # in-program spans (core.tracing); the engine hands every run's
+        # scheduler its own tracer
+        self.tracer = Tracer()
 
     # -- request lifecycle ---------------------------------------------------
     def _build_ctx(self, req: Request) -> ReqContext:
@@ -139,6 +144,10 @@ class SchedulerBase:
         return ReqContext.build(req, self.heg, start_tok=req.prefix_hit)
 
     def on_arrival(self, req: Request, now: float):
+        tr = self.tracer
+        if tr.on:  # sched.queued starts here, unless the front end's did
+            tr.flow_begin(req.id, "sched.queued", time.perf_counter_ns(),
+                          reactive=int(req.priority == Priority.REACTIVE))
         if req.id in self._cancel_pending:
             # cancel filed between submit and the arrival event (the front-
             # end's client vanished before the flow ever entered the queues)

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional
 from repro_torch.core.contention import co_execution_rates
 from repro_torch.core.requests import Priority, ReqState, Request
 from repro_torch.core.scheduler import SchedulerBase
+from repro_torch.core.tracing import Tracer
 
 
 @dataclasses.dataclass
@@ -84,8 +85,12 @@ class SimMetrics:
 class Simulator:
     def __init__(self, scheduler: SchedulerBase, requests: List[Request],
                  *, max_time: float = 36_000.0,
-                 poll: Optional[callable] = None):
+                 poll: Optional[callable] = None,
+                 tracer: Optional[Tracer] = None):
         self.sched = scheduler
+        # in-program spans (core.tracing): one ``engine.turn`` a loop turn,
+        # and the scheduler's three callbacks inside it
+        self.tracer = tracer or Tracer()
         self.requests = sorted(requests, key=lambda r: r.arrival_time)
         self.max_time = max_time
         # streaming-arrival hook: called once per event-loop turn with the
@@ -156,36 +161,54 @@ class Simulator:
     def run(self) -> SimMetrics:
         for req in self.requests:
             self._push(req.arrival_time, "arrival", req)
+        tr = self.tracer
         while self.now < self.max_time:
-            if self.poll is not None:
-                self.poll(self.now)  # may inject() new arrivals
-            if not self._heap:
-                # the poll may have freed capacity (quarantine, deadline
-                # abort) and drained the admission wait queue: give the
-                # scheduler one dispatch chance before declaring the run
-                # over, else an admitted-at-drain flow would stall forever
-                if self.sched.next_dispatch(self.now):
+            turn = tr.open("engine.turn") if tr.on else None
+            try:
+                if self.poll is not None:
+                    self.poll(self.now)  # may inject() new arrivals
+                if not self._heap:
+                    # the poll may have freed capacity (quarantine, deadline
+                    # abort) and drained the admission wait queue: give the
+                    # scheduler one dispatch chance before declaring the run
+                    # over, else an admitted-at-drain flow would stall
+                    # forever
+                    sp = tr.open("sched.dispatch") if tr.on else None
+                    started = self.sched.next_dispatch(self.now)
+                    if sp is not None:
+                        tr.close(sp)
+                    if started:
+                        self._schedule_completions()
+                        continue
+                    break
+                t, _, kind, payload = heapq.heappop(self._heap)
+                if kind == "done":
+                    ln, epoch = payload
+                    if epoch != self._epoch[ln]:
+                        continue  # stale completion (rates changed)
+                    rk = self.sched.running.get(ln)
+                    if rk is None:
+                        continue
+                    self._advance(t)
+                    if rk.remaining > 1e-9:
+                        self._schedule_completions()
+                        continue
+                    sp = tr.open("sched.complete") if tr.on else None
+                    self.sched.on_complete(rk, self.now)
+                else:
+                    self._advance(t)
+                    sp = tr.open("sched.arrival") if tr.on else None
+                    self.sched.on_arrival(payload, self.now)
+                if sp is not None:
+                    tr.close(sp)
+                    sp = tr.open("sched.dispatch")
+                started = self.sched.next_dispatch(self.now)
+                if sp is not None:
+                    tr.close(sp)
+                if started or kind == "done":
                     self._schedule_completions()
-                    continue
-                break
-            t, _, kind, payload = heapq.heappop(self._heap)
-            if kind == "done":
-                ln, epoch = payload
-                if epoch != self._epoch[ln]:
-                    continue  # stale completion (rates changed)
-                rk = self.sched.running.get(ln)
-                if rk is None:
-                    continue
-                self._advance(t)
-                if rk.remaining > 1e-9:
-                    self._schedule_completions()
-                    continue
-                self.sched.on_complete(rk, self.now)
-            else:
-                self._advance(t)
-                self.sched.on_arrival(payload, self.now)
-            started = self.sched.next_dispatch(self.now)
-            if started or kind == "done":
-                self._schedule_completions()
+            finally:
+                if turn is not None:
+                    tr.close(turn)
         return SimMetrics(completed=self.sched.done, sim_time=self.now,
                           energy_j=self.energy, lane_busy=self.lane_busy)

@@ -197,6 +197,7 @@ class ServingFrontend:
     def __init__(self, engine, *, max_buffered_tokens: int = 512,
                  run_max_time: float = 36_000.0):
         self.engine = engine
+        self._tracer = engine.tracer  # core.tracing: frontend.* spans
         self.max_buffered_tokens = int(max_buffered_tokens)
         self.run_max_time = float(run_max_time)
         self._flows: Dict[int, FlowHandle] = {}
@@ -401,12 +402,28 @@ class ServingFrontend:
         between abortable decode segments).  Hands over newly inboxed
         flows, drives queued cancels, and seals freshly retired handles so
         consumers unblock within one segment of their flow ending."""
+        tr = self._tracer
+        sp = tr.open("frontend.poll") if tr.on else None
         self._drive_cancels()
         for h in list(self._inflight.values()):
             self._seal_if_terminal(h)
         with self._lock:
             fresh = self._pop_arrivals_locked()
+        if sp is not None:
+            self._trace_handoff(fresh)
+            tr.close(sp, flows=len(fresh))
         return [(h.req, self._on_token) for h in fresh]
+
+    def _trace_handoff(self, flows: List[FlowHandle]) -> None:
+        """One ``frontend.handoff`` span a flow: submitted -> taken by the
+        engine thread, now (tracer on)."""
+        tr = self._tracer
+        now = time.perf_counter_ns()
+        for h in flows:
+            tr.flow_begin(h.flow_id, "frontend.handoff",
+                          round(h.submit_wall * 1e9),
+                          reactive=int(h.req.priority == Priority.REACTIVE))
+            tr.flow_mark(h.flow_id, "frontend.handoff", now)
 
     def _serve_loop(self) -> None:
         eng = self.engine
@@ -424,6 +441,8 @@ class ServingFrontend:
                 self._drive_cancels()
                 with self._wake:
                     seed = self._pop_arrivals_locked()
+                if self._tracer.on:
+                    self._trace_handoff(seed)
                 if not seed:
                     if state == "closed":
                         return

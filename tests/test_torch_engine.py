@@ -6,8 +6,17 @@ submitted mid-run from an ``on_token`` callback; mirrors of
 tests/test_prefix_cache.py's real-backend tests held to the reference on the
 same weights; for the recurrent families also the reference's
 elastic-decode exactness on a windowed hybrid (elastic == full pool == the
-unscheduled reference)."""
+unscheduled reference).  Last, the port's in-program tracer
+(``repro_torch.core.tracing``) and the benchmark's readings of it
+(``portbench/spans.py``): off it records nothing and a traced twin serves
+the same tokens and ``stats()``; a flow's three spans to its first token
+touch and add up to its first token's wall; spans nest in their parents;
+the idle split of synthetic intervals; the clock anchor against
+``torch.profiler``."""
 import copy
+import os
+import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +30,7 @@ from repro_torch.configs import get_tiny_config as t_tiny
 from repro_torch.core import Priority as TPriority
 from repro_torch.core import Request as TRequest
 from repro_torch.core.engine import RealAgentXPUEngine as TEngine
+from repro_torch.core.tracing import FLOW, Span, Tracer
 from repro_torch.models import init_params
 import torch_engine_cases as tec
 from torch_recurrent_cases import TAIL
@@ -319,3 +329,215 @@ def test_prefix_cache_size_knobs_match_reference(kw):
         assert be.prefix_hit(reqs[1]) == (40 if "prefix_block" in kw
                                           else 42)
     _assert_stats_equal(tbe.stats(), jbe.stats())
+
+
+# -- the in-program tracer (core.tracing) ----------------------------------
+def _spans():
+    """``portbench/spans.py``, the benchmark's reader of the spans."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import spans
+    return spans
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = t_tiny(ARCH)
+    return cfg, init_params(cfg, 0, torch.float32, "cpu")
+
+
+def _engine(tiny):
+    cfg, params = tiny
+    return TEngine(cfg, params, max_len=128, device="cpu",
+                   max_fused_steps=8, decode_segment_steps=2,
+                   strict_invariants=True)
+
+
+def _traced_flows(cfg, n=6):
+    """Proactive and reactive requests, all submitted before the run."""
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(8, 40))
+        out.append(TRequest(
+            id=i, priority=TPriority.REACTIVE if i % 3 == 2
+            else TPriority.PROACTIVE, prompt_len=plen,
+            max_new_tokens=int(rng.integers(3, 9)), arrival_time=0.0,
+            tokens=rng.integers(0, cfg.vocab_size, (1, plen))))
+    return out
+
+
+def test_off_records_nothing_and_on_changes_no_token(tiny):
+    cfg, _ = tiny
+    off, on = _engine(tiny), _engine(tiny)
+    on.tracer.enable()
+    m_off = off.serve(_traced_flows(cfg))
+    m_on = on.serve(_traced_flows(cfg))
+    assert off.tracer.records() == []
+    assert on.tracer.records()
+    for r in m_off.completed:
+        assert off.output_tokens(r.id) == on.output_tokens(r.id)
+    assert off.last_trace == on.last_trace
+    s_off, s_on = off.stats(), on.stats()
+    assert s_off.keys() == s_on.keys()
+    # the one wall-clock reading of stats() (segment walls' ratio)
+    wall = "co_execution_decode_slowdown_measured"
+    assert (s_off[wall] is None) == (s_on[wall] is None)
+    assert {k: v for k, v in s_off.items() if k != wall} \
+        == {k: v for k, v in s_on.items() if k != wall}
+
+
+def test_reactive_flow_spans_touch_and_make_its_first_token(tiny):
+    from repro_torch.launch.frontend import ServingFrontend
+    cfg, _ = tiny
+    eng = _engine(tiny)
+    eng.tracer.enable()
+    rng = np.random.default_rng(1)
+    with ServingFrontend(eng) as fe:
+        hs = [fe.submit(rng.integers(0, cfg.vocab_size, (1, 24)),
+                        max_new_tokens=6) for _ in range(3)]
+        time.sleep(0.02)
+        hs += [fe.submit(rng.integers(0, cfg.vocab_size, (1, 30)),
+                         priority=TPriority.REACTIVE, max_new_tokens=4)
+               for _ in range(2)]
+        for h in hs:
+            assert h.result(timeout=60)["status"] == "completed"
+    recs = eng.tracer.records()
+    for h in hs:
+        mine = sorted((s for s in recs if s.rid == h.flow_id
+                       and s.name in FLOW), key=lambda s: s.start)
+        assert [s.name for s in mine] == list(FLOW)
+        assert all(a.end == b.start for a, b in zip(mine, mine[1:]))
+        assert all(s.tid is None and s.dur >= 0 for s in mine)
+        reactive = h.req.priority == TPriority.REACTIVE
+        assert all(s.attrs == {"reactive": int(reactive)} for s in mine)
+        # the same clock: the spans run from the submit instant to the
+        # first token's emit, which its handle stamps a moment later
+        assert mine[0].start == round(h.submit_wall * 1e9)
+        gap = h.token_walls[0] - sum(s.dur for s in mine) / 1e9 \
+            - h.submit_wall
+        assert 0 <= gap < 5e-3
+    S = _spans()
+    parts, rids = S.ttft_parts(recs, 0, time.perf_counter_ns())
+    reactive = [h for h in hs if h.req.priority == TPriority.REACTIVE]
+    assert rids == sorted(h.flow_id for h in reactive)
+    mean = np.mean([h.token_walls[0] - h.submit_wall for h in reactive])
+    assert sum(parts.values()) == pytest.approx(mean, abs=5e-3)
+
+
+def test_spans_nest_in_their_parents_and_self_time_is_the_rest(tiny):
+    cfg, _ = tiny
+    eng = _engine(tiny)
+    eng.tracer.enable()
+    eng.serve(_traced_flows(cfg, 4))
+    recs = eng.tracer.records()
+    by_id = {s.id: s for s in recs}
+    stacked = [s for s in recs if s.tid is not None]
+    names = {s.name for s in stacked}
+    assert {"engine.turn", "sched.arrival", "sched.complete",
+            "sched.dispatch", "backend.launch", "backend.sync",
+            "backend.emit", "backend.chunk", "backend.prefill_finish",
+            "backend.decode_step", "backend.segment"} <= names
+    for s in stacked:
+        if s.name == "engine.turn":
+            assert s.parent is None
+            continue
+        p = by_id[s.parent]
+        assert p.start <= s.start <= s.end <= p.end
+    own = {}
+    for a, b, sp in _spans().innermost(stacked):
+        own[sp.id] = own.get(sp.id, 0) + b - a
+    kids = {}
+    for s in stacked:
+        if s.parent is not None:
+            kids[s.parent] = kids.get(s.parent, 0) + s.dur
+    for s in stacked:
+        assert own.get(s.id, 0) == s.dur - kids.get(s.id, 0)
+    for s in recs:
+        if s.name in ("backend.segment", "backend.decode_step"):
+            assert s.attrs["live"] >= 1 and s.attrs["rows"] >= 1
+    # by hand: a tracer's own stack
+    tr = Tracer()
+    tr.enable()
+    with tr.span("outer") as o:
+        with tr.span("inner", 7, rows=2) as i:
+            pass
+        tr.record("waited", o.start, i.end, rid=7)
+    recs = tr.records()
+    assert [s.name for s in recs] == ["inner", "waited", "outer"]
+    assert i.parent == o.id and o.parent is None and recs[1].parent == o.id
+    assert i.rid == 7 and i.attrs == {"rows": 2} and recs[1].tid is None
+    tr.disable()
+    assert len(tr.records()) == 3  # readable once off
+    tr.enable()
+    assert tr.records() == [] and tr.anchor is not None
+
+
+def _span(i, name, start, end, parent=None):
+    return Span(i, parent, 1, name, None, start, end, None)
+
+
+def test_idle_split_sums_to_the_idle_time_with_a_residual():
+    S = _spans()
+    # turn [0, 100) holds launch [10, 40) and sync [50, 60); a second turn
+    # [120, 150); nothing open over [100, 120) and [150, 160)
+    spans = [_span(1, "engine.turn", 0, 100), _span(2, "backend.launch",
+                                                    10, 40, 1),
+             _span(3, "backend.sync", 50, 60, 1),
+             _span(4, "engine.turn", 120, 150)]
+    busy = [(20, 30), (55, 58), (58, 70), (140, 200)]
+    by, residual = S.idle_by_span(spans, busy, 0, 160)
+    assert by == {"engine.turn": 10 + 10 + 30 + 20, "backend.launch": 20,
+                  "backend.sync": 5}
+    assert residual == 20
+    idle = sum(b - a for a, b in S.idle_intervals(busy, 0, 160))
+    assert sum(by.values()) + residual == idle == 160 - 10 - 15 - 20
+    sh = S.idle_shares(by, residual, 160)
+    assert sh["launch"] == pytest.approx(100 * 20 / 160)
+    assert sh["host_loop"] == pytest.approx(100 * 70 / 160)
+    assert sum(sh.values()) == pytest.approx(100 * idle / 160)
+    # a gap across three spans is split three ways
+    by, residual = S.idle_by_span(spans, [], 5, 55)
+    assert by == {"engine.turn": 15, "backend.launch": 30,
+                  "backend.sync": 5} and residual == 0
+
+
+def test_anchor_maps_spans_onto_the_profiler_clock():
+    from torch.profiler import ProfilerActivity, profile, record_function
+    S = _spans()
+    tr = Tracer()
+    with record_function("warm"):  # the first range pays its set-up
+        torch.ones(3).sum()
+    tr.enable()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        time.sleep(0.005)
+        with tr.span("mine") as sp:
+            with record_function("mine"):
+                torch.ones(8).sum()
+        time.sleep(0.005)
+    off = S.profiler_offset_ns(S.trace_start_ns(prof), tr.anchor)
+    ev = [e for e in prof.events() if e.name == "mine"]
+    assert len(ev) == 1
+    assert abs(off + ev[0].time_range.start * 1000 - sp.start) < 1e6
+
+
+def test_self_time_shares_and_queue_beside_a_reactive_prefill():
+    S = _spans()
+    spans = [_span(1, "engine.turn", 0, 100), _span(2, "backend.launch",
+                                                    10, 40, 1),
+             _span(3, "backend.sync", 50, 60, 1),
+             _span(4, "engine.turn", 120, 150)]
+    sh = S.self_shares(spans, 0, 160)
+    assert sh == pytest.approx({"launch": 100 * 30 / 160,
+                                "sync": 100 * 10 / 160,
+                                "host_loop": 100 * 90 / 160,
+                                "residual": 100 * 30 / 160})
+    assert S.self_shares(spans, 20, 60)["launch"] == pytest.approx(50)
+    # flow 2 queues over [5, 30) while flow 1 prefills over [10, 30)
+    flows = [Span(i, None, None, n, rid, a, b, {"reactive": 1})
+             for i, (n, rid, a, b) in enumerate(
+                 [(FLOW[1], 1, 0, 10), (FLOW[2], 1, 10, 30),
+                  (FLOW[1], 2, 5, 30), (FLOW[2], 2, 30, 40)])]
+    assert S.queue_overlap(flows, [2]) == pytest.approx(20 / 25)
+    assert S.queue_overlap(flows, [1, 2]) == pytest.approx(20 / 35)
